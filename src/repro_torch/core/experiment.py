@@ -1,0 +1,128 @@
+"""Batched experiment engine: a whole rate × seed × scenario sweep grid as
+ONE batched dispatch of B lanes (port of ``repro.core.experiment``).
+
+``run_sweep`` lowers a ``SweepSpec`` on the host:
+
+  1. the channel delay horizon is resolved ONCE for the whole sweep
+     (``netsim.resolve_horizon`` over every scenario of the grid), so every
+     lane shares one ring shape;
+  2. every scenario becomes an env (``netsim.build_env``, window tables
+     padded to a common width), and the flattened grid's envs stack along
+     a leading batch axis B;
+  3. ``harness.sim_point`` runs all B lanes through one tick loop and
+     extracts their metrics on the device.
+
+Grid points are independent lanes: a lane's result does not depend on the
+other lanes (its arrival draws come from its own generator), so a batched
+grid equals the same points run one by one, bit for bit.
+"""
+from __future__ import annotations
+
+import itertools
+import time
+from dataclasses import dataclass
+from typing import Dict, Iterator, List, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch import device as _device
+from repro_torch import scenarios as sc
+from repro_torch import workloads as wlc
+from repro_torch.configs.smr import SMRConfig
+from repro_torch.core import harness, netsim
+
+_TIMING: Dict[str, Dict[str, float]] = {}
+
+
+def timing_stats() -> Dict[str, Dict[str, float]]:
+    """Per-protocol wall-clock of the sweeps since the last reset:
+    ``run_s`` (tick loop + metrics + readback) and ``horizon`` (the
+    resolved ring size of the latest sweep)."""
+    return {k: dict(v) for k, v in _TIMING.items()}
+
+
+def reset_timing_stats() -> None:
+    _TIMING.clear()
+
+
+@dataclass(frozen=True)
+class SweepSpec:
+    """A sweep grid: cartesian product of rates (tx/s), seeds,
+    network-scenario variants and traffic-shape variants. ``points()``
+    yields the flattened grid in rate-major order as (rate, seed,
+    scenario_index, workload_index) — the order ``run_sweep`` returns."""
+    rates: Tuple[float, ...]
+    seeds: Tuple[int, ...] = (0,)
+    scenarios: Tuple = (None,)
+    workloads: Tuple = (None,)
+
+    def points(self) -> Iterator[Tuple[float, int, int, int]]:
+        for rate, seed, fi, wi in itertools.product(
+                self.rates, self.seeds, range(len(self.scenarios)),
+                range(len(self.workloads))):
+            yield float(rate), int(seed), fi, wi
+
+    @property
+    def size(self) -> int:
+        return (len(self.rates) * len(self.seeds) * len(self.scenarios)
+                * len(self.workloads))
+
+
+def _lower(cfg: SMRConfig, spec: SweepSpec, device: torch.device):
+    """Flatten the grid to a batched env, per-lane rates (per replica per
+    tick) and seeds, the workload mode and the horizon-resolved cfg."""
+    pts = list(spec.points())
+    stabs = [sc.lower(cfg, sc.as_scenario(f)) for f in spec.scenarios]
+    n_windows = max(t["alive"].shape[0] for t in stabs)
+    # build_env gets the ORIGINAL cfg, so its static-delay validation sees
+    # the user's auto-vs-pinned intent; the lanes share the sweep-wide
+    # resolved horizon
+    envs = [netsim.build_env(cfg, f, n_windows, tab=t, device=device)
+            for f, t in zip(spec.scenarios, stabs)]
+    cfg = netsim.resolve_horizon(cfg, tabs=stabs)
+    mode = wlc.mode_of([wlc.lower(cfg, w) for w in spec.workloads])
+    env_b = netsim.stack_envs([envs[fi] for _, _, fi, _ in pts])
+    # per-replica Poisson rate per tick, computed in float64 on the host
+    # so that a batched grid and a single point see identical inputs
+    rate_b = (np.array([r for r, _, _, _ in pts], np.float64)
+              * cfg.tick_ms / 1000.0 / cfg.n_replicas).astype(np.float32)
+    seed_b = [s for _, s, _, _ in pts]
+    return pts, cfg, mode, env_b, rate_b, seed_b
+
+
+def run_sweep(protocol: str, cfg: SMRConfig, spec: SweepSpec, device=None,
+              draws=None) -> List[Dict]:
+    """Run the whole grid as one batched dispatch; returns one result dict
+    per point, in ``spec.points()`` order, with the keys of the
+    reference's ``PendingSweep.collect`` for this protocol. ``device``:
+    None = CUDA (raises without one), or e.g. "cpu". ``draws``: optional
+    [B, T, n] arrival table replacing the per-lane torch Poisson draws."""
+    harness.check_supported(protocol, cfg)
+    dev = _device.resolve(device)
+    wl_names = [wlc.as_workload(w).name for w in spec.workloads]
+    t0 = time.perf_counter()
+    pts, cfg, mode, env_b, rate_b, seed_b = _lower(cfg, spec, dev)
+    out = harness.sim_point(protocol, cfg, env_b, rate_b.tolist(), seed_b,
+                            draws=draws, mode=mode, device=dev)
+    out = {k: v.cpu().numpy() for k, v in out.items()}
+    stats = _TIMING.setdefault(protocol, {"run_s": 0.0, "horizon": 0})
+    stats["run_s"] += time.perf_counter() - t0
+    stats["horizon"] = int(cfg.delay_horizon_ticks)
+    results: List[Dict] = []
+    for i, (rate, seed, fi, wi) in enumerate(pts):
+        r: Dict = {"protocol": protocol, "rate": rate, "seed": seed,
+                   "workload": wl_names[wi],
+                   "throughput": float(out["throughput"][i]),
+                   "median_ms": float(out["median_ms"][i]),
+                   "p99_ms": float(out["p99_ms"][i]),
+                   "committed": float(out["committed"][i])}
+        for k in ("timeline", "origin_median_ms", "origin_p99_ms",
+                  "origin_timeline", "origin_lat_ms_timeline"):
+            r[k] = out[k][i]
+        r["async_frac"] = float(out["async_frac"][i])
+        r["views"] = int(out["views"][i])
+        r["cvc_all"] = out["cvc_all"][i]
+        r["commit_key"] = out["commit_key"][i]
+        results.append(r)
+    return results

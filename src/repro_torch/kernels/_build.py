@@ -1,0 +1,74 @@
+"""Build a CUDA source of the package into a shared library with a plain C
+interface and load it with ctypes.
+
+The library is compiled with ``nvcc`` for ``sm_90a`` at first use, from the
+source in the checkout alone, into ``build/kernels/`` at the root of the
+checkout (``.gitignore`` lists it; ``REPRO_TORCH_BUILD_DIR`` overrides the
+place). Its file name carries a hash of the source and the flags, so an
+edited source is rebuilt and an unchanged one is loaded as it is. A failed
+build raises: nothing falls back to the plain PyTorch version.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from dataclasses import dataclass
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+@dataclass
+class Built:
+    lib: ctypes.CDLL
+    path: Path
+    seconds: float      # compile time of this process's build, 0 if loaded
+    log: str            # nvcc's output (ptxas register/spill report)
+
+
+def build_dir() -> Path:
+    env = os.environ.get("REPRO_TORCH_BUILD_DIR")
+    if env:
+        return Path(env)
+    return Path(__file__).resolve().parents[3] / "build" / "kernels"
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found: the CUDA kernels of repro_torch are "
+                       "built at first use and need the CUDA toolkit")
+
+
+def build(name: str) -> Built:
+    """Compile ``csrc/<name>.cu`` (or reuse its up-to-date build) and load
+    it."""
+    source = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(source.read_bytes()
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    out_dir = build_dir()
+    out = out_dir / f"{name}-{digest}.so"
+    seconds, log = 0.0, ""
+    if not out.exists():
+        out_dir.mkdir(parents=True, exist_ok=True)
+        tmp = out_dir / f".{name}-{digest}.{os.getpid()}.so"
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        seconds = time.perf_counter() - t0
+        log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed building {source} "
+                               f"(exit {proc.returncode}):\n{log}")
+        os.replace(tmp, out)
+    return Built(ctypes.CDLL(str(out)), out, seconds, log)

@@ -1,0 +1,55 @@
+"""The port's batched sweep engine (repro_torch.core.experiment): a grid run
+as one B-lane dispatch equals the same points run one by one, bit for bit
+(the port's copy of tests/test_experiment.py's grid-vs-sequential
+property), and what the port does not run yet raises
+NotImplementedError."""
+import numpy as np
+import pytest
+
+from repro_torch.configs.smr import SMRConfig
+from repro_torch.core import experiment
+from repro_torch.core.experiment import SweepSpec, run_sweep
+from repro_torch.workloads import PoissonOpen, Workload
+
+CFG = SMRConfig(sim_seconds=0.8)
+SCALARS = ("throughput", "median_ms", "p99_ms", "committed", "async_frac",
+           "views")
+ARRAYS = ("timeline", "origin_median_ms", "origin_p99_ms", "cvc_all",
+          "commit_key")
+
+
+def test_grid_matches_sequential_runs():
+    """2 rates x 2 seeds through one 4-lane dispatch == four single-point
+    runs, bitwise, with the port's default per-lane Poisson draws."""
+    spec = SweepSpec(rates=(40_000, 120_000), seeds=(0, 1))
+    experiment.reset_timing_stats()
+    grid = run_sweep("mandator-sporades", CFG, spec, device="cpu")
+    stats = experiment.timing_stats()["mandator-sporades"]
+    assert stats["horizon"] == 256 and stats["run_s"] > 0
+    assert len(grid) == spec.size == 4
+    assert any(r["committed"] > 0 for r in grid)
+    for r, (rate, seed, _, _) in zip(grid, spec.points()):
+        assert (r["rate"], r["seed"]) == (rate, seed)
+        single, = run_sweep("mandator-sporades", CFG,
+                            SweepSpec(rates=(rate,), seeds=(seed,)),
+                            device="cpu")
+        for k in SCALARS:
+            a, b = r[k], single[k]
+            assert a == b or (np.isnan(a) and np.isnan(b)), (k, a, b)
+        for k in ARRAYS:
+            np.testing.assert_array_equal(r[k], single[k], err_msg=k)
+
+
+def test_unported_paths_raise():
+    spec = SweepSpec(rates=(10_000,))
+    for proto, item in (("multipaxos", "item 10"), ("epaxos", "item 12")):
+        with pytest.raises(NotImplementedError, match=item):
+            run_sweep(proto, CFG, spec, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 13"):
+        run_sweep("mandator-sporades", SMRConfig(trace_level="full"), spec,
+                  device="cpu")
+    with pytest.raises(NotImplementedError, match="item 11"):
+        run_sweep("mandator-sporades", CFG,
+                  SweepSpec(rates=(10_000,), workloads=(
+                      Workload("half", (PoissonOpen(0.5),)),)),
+                  device="cpu")
