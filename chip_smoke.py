@@ -8,7 +8,9 @@ Run from the root of a checkout, with one card and no arguments:
 Phases, each printed as it ends; any failure exits non-zero:
 
   1. card   — nvidia-smi's name and power limit;
-  2. build  — nvcc builds the channel-ring kernel from csrc/ (sm_90a);
+  2. build  — nvcc builds the three kernels of csrc/ (channel_ring.cu,
+              rmsnorm.cu, flash_attention.cu; sm_90a), all started
+              together; build time and ptxas registers and spills;
   3. kernel — random tick traffic (drops, in-slot collisions, 2*D ticks,
               D=256, B=16) through the sporades, mandator and additive ring
               layouts, kernel and plain PyTorch version bitwise equal after
@@ -21,13 +23,35 @@ Phases, each printed as it ends; any failure exits non-zero:
   5. profile — ticks 500-700 of that grid run twice from one state,
               untraced (wall per tick) and under torch.profiler (kernel
               launches and device busy time per tick, the top kernels);
-  6. whole path — 2 s runs of baseline and leader-crash-recover with the
-              kernel and with the plain version, bitwise equal; the same
-              points on the card and on the CPU from one arrival table,
-              bitwise equal;
-  7. the card's line, the kernels line, then the result line.
+  6. whole path — 1.5 s runs of baseline and leader-crash-recover with
+              the kernel and with the plain version, bitwise equal (2 s
+              runs until the model phases were added; 1.5 s still enters
+              the async path, as tests/test_torch_slice.py checks); the
+              same points for 1 s on the card and on the CPU from one
+              arrival table, bitwise equal;
+  7. model kernels — RMSNorm ([8192, 576] and [4, 576], float32 and
+              bfloat16, with and without residual) and flash attention
+              (SmolLM-135M's B=4 S=2048 H=9 Kh=3 D=64 causal in float32
+              and bfloat16, a ragged S=1000, qwen3-14b's D=128 H=40 Kh=8,
+              a non-causal case) against their plain versions, with the
+              time per launch (CUDA events), the bound, the plain
+              version's time and one PyTorch library call's
+              (F.rms_norm, F.scaled_dot_product_attention);
+  8. prefill — full-width smollm-135m (random weights, seed 0) on tokens
+              [4, 2048]: forward_train with the kernels (attention_impl=
+              "pallas", use_pallas_norm) and with their plain versions;
+              logits' max difference, wall time, tokens/s and the launches
+              of each kernel in the kernel run;
+  9. decode — the same model and prompt token by token through
+              forward_decode for the first 256 positions: logits within
+              5e-3 of the prefill's at every position, ms per step, and 16
+              steps profiled (launches per step, device busy share);
+ 10. serve  — serve("smollm-135m", reduced=False, batch=4, prompt_len=16,
+              gen=32) through the entry point: tokens [4, 32];
+ 11. the card's line, the kernels line, then the result line.
 
-It imports nothing of JAX and nothing of the JAX package.
+It imports nothing of JAX and nothing of the JAX package. Float32 matrix
+products and convolutions run in full float32 (TF32 off).
 """
 from __future__ import annotations
 
@@ -43,6 +67,9 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory (data sheet)
+L2_BYTES = 50e6                    # H100 L2 cache (data sheet)
+# H100 SXM dense peaks (data sheet): float32 without tensor cores, bf16
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 B, D = 16, 256                     # the Fig-6 grid's lanes and ring slots
 FIG6_RATES = (50_000, 150_000, 300_000, 450_000)
 FIG6_SEEDS = (0, 1, 2, 3)
@@ -322,7 +349,7 @@ def phase_whole_path() -> None:
     from repro_torch.core.experiment import SweepSpec, run_sweep
     from repro_torch.scenarios import library
 
-    sim_s = 2.0
+    sim_s = 1.5
     names = ("baseline", "leader-crash-recover")
     spec = SweepSpec(rates=(100_000,), seeds=(0,),
                      scenarios=tuple(library.get(x, sim_s) for x in names))
@@ -332,7 +359,8 @@ def phase_whole_path() -> None:
             for b in ("cuda", "ref")}
     _assert_same(runs["cuda"], runs["ref"], names, "kernel vs plain")
     for r, name in zip(runs["cuda"], names):
-        log("whole", f"{name} 2 s @100k: throughput={r['throughput']!r} "
+        log("whole", f"{name} {sim_s} s @100k: "
+                     f"throughput={r['throughput']!r} "
                      f"median_ms={r['median_ms']!r} "
                      f"async_frac={r['async_frac']!r} views={r['views']}")
     if not runs["cuda"][1]["async_frac"] > 0:
@@ -368,32 +396,392 @@ def _assert_same(a, b, names, what) -> None:
                 raise AssertionError(f"{what}: {name} {k} {x[k]} != {y[k]}")
 
 
+# ---------------------------------------------------------------------------
+# the model stack: RMSNorm and flash attention kernels, prefill, decode
+# ---------------------------------------------------------------------------
+
+# (rows, D, dtype, residual): the B=4 x S=2048 prefill and a B=4 decode step
+RMS_CASES = tuple((n, 576, dt, res) for n in (8192, 4)
+                  for dt in ("float32", "bfloat16") for res in (False, True))
+RMS_TOL = {"float32": 1e-5, "bfloat16": 3e-2}
+# (name, B, S, H, Kh, D, causal, dtype)
+FLASH_CASES = (
+    ("smollm-prefill", 4, 2048, 9, 3, 64, True, "float32"),
+    ("smollm-prefill-bf16", 4, 2048, 9, 3, 64, True, "bfloat16"),
+    ("ragged-S1000", 4, 1000, 9, 3, 64, True, "float32"),
+    ("qwen3-14b-D128", 1, 2048, 40, 8, 128, True, "float32"),
+    ("non-causal", 4, 512, 9, 3, 64, False, "float32"),
+)
+FLASH_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+PREFILL_B, PREFILL_S, DECODE_STEPS = 4, 2048, 256
+LOGITS_TOL = 1e-3        # prefill logits, kernels vs plain, float32
+DECODE_TOL = 5e-3        # decode vs prefill logits (tests/test_models.py)
+
+
+def check_rmsnorm(n, d, dtype, residual):
+    """Kernel against plain version on one case: x (and the residual)
+    ~ N(0, 1) in ``dtype``, w = 1 + N(0, 0.1^2) in float32 as the model
+    keeps its norm weights. Returns (max abs err, inputs)."""
+    import torch
+    from repro_torch.kernels.rmsnorm import kernel, ref
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    dt = getattr(torch, dtype)
+    x = torch.randn((n, d), generator=gen, device="cuda").to(dt)
+    r = (torch.randn((n, d), generator=gen, device="cuda").to(dt)
+         if residual else None)
+    w = 1 + 0.1 * torch.randn((d,), generator=gen, device="cuda")
+    out = kernel.rmsnorm_cuda(x, w, eps=1e-5, residual=r)
+    want = ref.rmsnorm_ref(x, w, eps=1e-5, residual=r)
+    torch.cuda.synchronize()
+    if out.dtype != x.dtype or out.shape != x.shape:
+        raise AssertionError(f"rmsnorm output {out.dtype} {out.shape}")
+    return (out.float() - want.float()).abs().max().item(), (x, w, r)
+
+
+def check_flash(b, s, h, kh, d, causal, dtype):
+    """Kernel against plain version on one case, q, k, v ~ N(0, 1) in
+    ``dtype``. Returns (max abs err, inputs)."""
+    import torch
+    from repro_torch.kernels.flash_attention import kernel, ref
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dt)
+               for shape in ((b, s, h, d), (b, s, kh, d), (b, s, kh, d)))
+    out = kernel.flash_attention_cuda(q, k, v, causal=causal)
+    want = ref.attention_ref(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    if out.dtype != q.dtype or out.shape != q.shape:
+        raise AssertionError(f"flash output {out.dtype} {out.shape}")
+    return (out.float() - want.float()).abs().max().item(), (q, k, v)
+
+
+def flash_bound(b, s, h, kh, d, causal, dtype):
+    """(bound ms, what bounds it, flops, bytes): 4*D flops for each visible
+    (query, key) pair at the dtype's peak; q, k, v read and out written
+    once at 3.35 TB/s."""
+    pairs = s * (s + 1) // 2 if causal else s * s
+    flops = 4 * d * b * h * pairs
+    es = 4 if dtype == "float32" else 2
+    nbytes = es * b * s * d * (2 * h + 2 * kh)
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    if t_ops >= t_bytes:
+        return t_ops, "operations", flops, nbytes
+    return t_bytes, "bytes", flops, nbytes
+
+
+def cycling(fn, first: tuple, nbytes: int):
+    """A call of ``fn`` that takes the next of enough copies of its inputs
+    (``first`` and clones of it) to stream more than three L2 caches'
+    worth, so that a timed run of launches reads its inputs from device
+    memory as the bound assumes, not from L2. Inputs under 1 MB are not
+    copied: a decode step finds them in L2 as well."""
+    import itertools
+    copies = 1 if nbytes < 1e6 else min(8, math.ceil(3 * L2_BYTES / nbytes))
+    sets = [first] + [tuple(None if t is None else t.clone() for t in first)
+                      for _ in range(copies - 1)]
+    it = itertools.cycle(sets)
+    return lambda: fn(*next(it))
+
+
+def phase_model_kernels(results: dict) -> None:
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention import ref as fref
+    from repro_torch.kernels.rmsnorm import kernel as rk
+    from repro_torch.kernels.rmsnorm import ref as rref
+
+    cases = []
+    for n, d, dtype, residual in RMS_CASES:
+        err, (x, w, r) = check_rmsnorm(n, d, dtype, residual)
+        if not err <= RMS_TOL[dtype]:
+            raise AssertionError(f"rmsnorm [{n}, {d}] {dtype} residual="
+                                 f"{residual}: kernel vs plain {err} > "
+                                 f"{RMS_TOL[dtype]}")
+        es = x.element_size()
+        nbytes = n * d * es * (3 if residual else 2) + d * 4
+        ms = device_ms(cycling(lambda x, w, r: rk.rmsnorm_cuda(
+            x, w, residual=r), (x, w, r), nbytes))
+        plain_ms = device_ms(cycling(lambda x, w, r: rref.rmsnorm_ref(
+            x, w, residual=r), (x, w, r), nbytes))
+        library_ms = None
+        if dtype == "float32" and not residual:
+            library_ms = device_ms(cycling(lambda x, w, _: F.rms_norm(
+                x, (d,), w, 1e-5), (x, w, r), nbytes))
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        cases.append({"shape": [n, d], "dtype": dtype, "residual": residual,
+                      "max_abs_err": err, "tol": RMS_TOL[dtype], "ms": ms,
+                      "plain_ms": plain_ms, "bound_ms": bound_ms,
+                      "bytes": nbytes, "library_ms": library_ms})
+        log("model kernels", f"rmsnorm [{n}, {d}] {dtype} residual="
+                             f"{residual}: max abs err {err!r} (tol "
+                             f"{RMS_TOL[dtype]}), kernel {ms!r} ms, plain "
+                             f"{plain_ms!r} ms, F.rms_norm {library_ms!r} "
+                             f"ms, bound {bound_ms!r} ms ({nbytes} bytes)")
+    results["rmsnorm"] = cases
+
+    cases = []
+    for name, b, s, h, kh, d, causal, dtype in FLASH_CASES:
+        err, (q, k, v) = check_flash(b, s, h, kh, d, causal, dtype)
+        if not err <= FLASH_TOL[dtype]:
+            raise AssertionError(f"flash {name}: kernel vs plain {err} > "
+                                 f"{FLASH_TOL[dtype]}")
+        bound_ms, bound_by, flops, nbytes = flash_bound(b, s, h, kh, d,
+                                                        causal, dtype)
+        ms = device_ms(cycling(lambda q, k, v: fk.flash_attention_cuda(
+            q, k, v, causal=causal), (q, k, v), nbytes), reps=10, rounds=5)
+        plain_ms = device_ms(cycling(lambda q, k, v: fref.attention_ref(
+            q, k, v, causal=causal), (q, k, v), nbytes), reps=3, rounds=3)
+        library_ms = device_ms(cycling(
+            lambda q, k, v: F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                is_causal=causal, enable_gqa=True), (q, k, v), nbytes),
+            reps=10, rounds=5)
+        cases.append({"case": name, "shape": [b, s, h, kh, d],
+                      "causal": causal, "dtype": dtype, "max_abs_err": err,
+                      "tol": FLASH_TOL[dtype], "ms": ms,
+                      "plain_ms": plain_ms, "library_ms": library_ms,
+                      "bound_ms": bound_ms, "bound_by": bound_by,
+                      "flops": flops, "bytes": nbytes})
+        log("model kernels", f"flash {name} B={b} S={s} H={h} Kh={kh} D={d}"
+                             f" causal={causal} {dtype}: max abs err "
+                             f"{err!r} (tol {FLASH_TOL[dtype]}), kernel "
+                             f"{ms!r} ms ({flops / ms / 1e9!r} TFLOP/s), "
+                             f"plain {plain_ms!r} ms, sdpa {library_ms!r} "
+                             f"ms, bound {bound_ms!r} ms by {bound_by}")
+        del q, k, v
+        torch.cuda.empty_cache()
+    results["flash"] = cases
+
+
+def _smollm():
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import CallConfig, init_params
+    cfg = get_config("smollm-135m")
+    params = init_params(cfg, 0)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab, (PREFILL_B, PREFILL_S),
+                           generator=gen, device="cuda")
+    call = CallConfig(compute_dtype=torch.float32, attention_impl="pallas",
+                      use_pallas_norm=True, remat=False)
+    return cfg, params, tokens, call
+
+
+def _reset_counts():
+    from repro_torch.kernels.channel_ring import kernel as ck
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.rmsnorm import kernel as rk
+    for k in (ck, fk, rk):
+        k.launch_count = 0
+
+
+def _counts() -> dict:
+    from repro_torch.kernels.channel_ring import kernel as ck
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.rmsnorm import kernel as rk
+    return {"channel_ring_commit": ck.launch_count,
+            "flash_attention": fk.launch_count, "rmsnorm": rk.launch_count}
+
+
+def phase_prefill(results: dict, model) -> None:
+    import dataclasses
+
+    import torch
+    from repro_torch.models import forward_train, param_count_actual
+
+    cfg, params, tokens, call = model
+    plain = dataclasses.replace(call, kernel_backend="ref")
+    batch = {"tokens": tokens}
+    with torch.no_grad():
+        forward_train(params, cfg, call, batch)          # first calls
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        logits, _ = forward_train(params, cfg, call, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _counts()
+        t0 = time.perf_counter()
+        logits_plain, _ = forward_train(params, cfg, plain, batch)
+        torch.cuda.synchronize()
+        wall_plain = time.perf_counter() - t0
+    diff = (logits - logits_plain).abs().max().item()
+    del logits_plain
+    n_tok = PREFILL_B * PREFILL_S
+    log("prefill", f"{cfg.name} full width ({param_count_actual(params)} "
+                   f"params, {cfg.n_layers} layers), tokens "
+                   f"[{PREFILL_B}, {PREFILL_S}], float32: kernels "
+                   f"{wall!r} s = {n_tok / wall!r} tokens/s; plain "
+                   f"versions {wall_plain!r} s = {n_tok / wall_plain!r} "
+                   f"tokens/s; logits max abs diff {diff!r} (tol "
+                   f"{LOGITS_TOL}); launches {counts}")
+    if not torch.isfinite(logits).all():
+        raise AssertionError("prefill logits are not finite")
+    if tuple(logits.shape) != (PREFILL_B, PREFILL_S, cfg.vocab):
+        raise AssertionError(f"prefill logits shape {tuple(logits.shape)}")
+    if not diff <= LOGITS_TOL:
+        raise AssertionError(f"prefill logits, kernels vs plain: {diff}")
+    want_rms = 2 * cfg.n_layers + 1
+    if counts["flash_attention"] != cfg.n_layers \
+            or counts["rmsnorm"] != want_rms:
+        raise AssertionError(f"expected {cfg.n_layers} flash and "
+                             f"{want_rms} rmsnorm launches, got {counts}")
+    results["prefill"] = {"wall_s": wall, "tokens_per_s": n_tok / wall,
+                          "plain_wall_s": wall_plain, "logits_diff": diff,
+                          "launches": counts}
+    results["prefill_logits"] = logits
+
+
+def phase_decode(results: dict, model) -> None:
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import forward_decode, init_cache
+
+    cfg, params, tokens, call = model
+    ref = results.pop("prefill_logits")[:, :DECODE_STEPS]
+    cache = init_cache(cfg, PREFILL_B, DECODE_STEPS, torch.float32)
+
+    def step(t):
+        return forward_decode(params, cfg, call, {"tokens": tokens[:, t]},
+                              cache, t)[0]
+
+    torch.cuda.synchronize()
+    _reset_counts()
+    errs = []
+    t0 = time.perf_counter()
+    for t in range(DECODE_STEPS):
+        errs.append((step(t) - ref[:, t]).abs().max())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _counts()
+    errs = torch.stack(errs)
+    worst = errs.max().item()
+    ms_step = wall / DECODE_STEPS * 1e3
+    log("decode", f"{DECODE_STEPS} steps of B={PREFILL_B}: {ms_step!r} "
+                  f"ms/step ({PREFILL_B * 1e3 / ms_step!r} tokens/s); "
+                  f"logits vs prefill max abs diff {worst!r} (tol "
+                  f"{DECODE_TOL}), worst at position "
+                  f"{int(errs.argmax())}; launches {counts}")
+    if not worst <= DECODE_TOL:
+        raise AssertionError(f"decode logits off the prefill's: {worst}")
+    want_rms = (2 * cfg.n_layers + 1) * DECODE_STEPS
+    if counts["rmsnorm"] != want_rms or counts["flash_attention"] != 0:
+        raise AssertionError(f"expected {want_rms} rmsnorm and no flash "
+                             f"launches in decode, got {counts}")
+
+    # positions 240-255 again (the cache already holds them; the mask at
+    # kv_len = t + 1 makes each step see what it saw the first time)
+    window = range(DECODE_STEPS - 16, DECODE_STEPS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in window:
+        step(t)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / len(window)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for t in window:
+            step(t)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3 \
+        / len(window)
+    launches = sum(e.count for e in kernels) / len(window)
+    results["decode"] = {"ms_per_step": ms_step, "max_diff": worst,
+                         "launches": counts, "window_ms": wall_ms}
+    log("decode", f"steps {window.start}-{window.stop - 1} untraced: "
+                  f"{wall_ms!r} ms/step")
+    if dev_ms <= 0:
+        log("decode", "torch.profiler recorded no device time: device busy "
+                      "share not measured")
+        return
+    results["decode"].update(launches_per_step=launches,
+                             device_ms_per_step=dev_ms,
+                             busy_share=dev_ms / wall_ms)
+    log("decode", f"{len(window)} steps traced: {launches!r} kernel "
+                  f"launches/step, device busy {dev_ms!r} ms/step of "
+                  f"{wall_ms!r} ms/step untraced wall (busy share "
+                  f"{dev_ms / wall_ms!r})")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
+        log("decode", f"  {e.self_device_time_total / len(window)!r} "
+                      f"us/step x{e.count / len(window):g}/step  "
+                      f"{e.key[:90]}")
+
+
+def phase_serve(results: dict) -> None:
+    from repro_torch.launch.serve import serve
+    out = serve("smollm-135m", reduced=False, batch=4, prompt_len=16,
+                gen=32, verbose=False)
+    toks = out["tokens"]
+    log("serve", f"smollm-135m full width, batch 4, prompt 16, gen 32: "
+                 f"{out['seconds']!r} s, tokens {toks.shape}, first "
+                 f"sequence {toks[0, :16].tolist()}")
+    if toks.shape != (4, 32) or not ((toks >= 0) & (toks < 49152)).all():
+        raise AssertionError(f"serve returned {toks.shape} {toks.dtype}")
+    results["serve_s"] = out["seconds"]
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 1
     import repro_torch  # noqa: F401  (fails outside a checkout)
-    from repro_torch.kernels.channel_ring import kernel
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.channel_ring import kernel as ck
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.rmsnorm import kernel as rk
 
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     card = card_line()
     log("card", card)
     log("card", f"torch {torch.__version__} cuda {torch.version.cuda} "
                 f"device {torch.cuda.get_device_name(0)}")
 
-    built = kernel.build()
-    log("build", f"{built.path.name} built in {built.seconds!r} s")
-    for line in built.log.splitlines():
-        if "registers" in line or "spill" in line:
-            log("build", line.strip())
+    t0 = time.perf_counter()
+    built = _build.build_many((ck.NAME, rk.NAME, fk.NAME))
+    log("build", f"{len(built)} libraries in {time.perf_counter() - t0!r} s "
+                 "(nvcc processes started together)")
+    for name, b in built.items():
+        log("build", f"{b.path.name}: {b.seconds!r} s")
+        for line in b.log.splitlines():
+            if ("entry function" in line or "registers" in line
+                    or "spill" in line):
+                log("build", "  " + line.strip())
+    for k in (ck, rk, fk):
+        k.build()                     # binds the library just built
 
     results: dict = {}
-    phase_kernel(results)
-    phase_main(results)
-    phase_profile(results)
-    phase_whole_path()
+    start = time.perf_counter()
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        fn(*args)
+        log("time", f"{name} {time.perf_counter() - t!r} s (run so far "
+                    f"{time.perf_counter() - start!r} s)")
+
+    timed("kernel", phase_kernel, results)
+    timed("main", phase_main, results)
+    timed("profile", phase_profile, results)
+    timed("whole path", phase_whole_path)
+    timed("model kernels", phase_model_kernels, results)
+    model = _smollm()
+    timed("prefill", phase_prefill, results, model)
+    timed("decode", phase_decode, results, model)
+    del model
+    timed("serve", phase_serve, results)
 
     sp = results["per_layout"]["sporades"]
+    rms, flash = results["rmsnorm"][0], results["flash"][0]
     kernels = [{
         "name": "channel_ring_commit",
         "route": "cuda",
@@ -407,6 +795,33 @@ def main() -> int:
         "bound_by": "bytes",
         "library_ms": None,
         "per_layout": results["per_layout"],
+    }, {
+        "name": "rmsnorm",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/rmsnorm.cu",
+        "replaces": "src/repro/kernels/rmsnorm/kernel.py:15",
+        "launches": results["prefill"]["launches"]["rmsnorm"],
+        "max_abs_err": rms["max_abs_err"],
+        "ms": rms["ms"],
+        "plain_ms": rms["plain_ms"],
+        "bound_ms": rms["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": rms["library_ms"],
+        "launches_decode": results["decode"]["launches"]["rmsnorm"],
+        "cases": results["rmsnorm"],
+    }, {
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:25",
+        "launches": results["prefill"]["launches"]["flash_attention"],
+        "max_abs_err": flash["max_abs_err"],
+        "ms": flash["ms"],
+        "plain_ms": flash["plain_ms"],
+        "bound_ms": flash["bound_ms"],
+        "bound_by": flash["bound_by"],
+        "library_ms": flash["library_ms"],
+        "cases": results["flash"],
     }]
     print(card)
     print(json.dumps({"kernels": kernels}))

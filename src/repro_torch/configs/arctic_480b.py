@@ -1,0 +1,11 @@
+"""arctic-480b — 128 experts top-2 + dense residual.  [hf:Snowflake/snowflake-arctic-base; hf]"""
+from repro_torch.configs.base import ModelConfig, MoEConfig
+
+CONFIG = ModelConfig(
+    name="arctic-480b", family="moe",
+    n_layers=35, d_model=7168, n_heads=56, n_kv_heads=8, head_dim=128,
+    d_ff=4864, vocab=32000,
+    moe=MoEConfig(n_experts=128, top_k=2, d_ff_expert=4864, every=1,
+                  dense_residual=True, dense_d_ff=4864),
+    notes="dense-MoE hybrid residual architecture",
+)

@@ -1,0 +1,9 @@
+"""qwen3-14b — qk_norm, GQA.  [hf:Qwen/Qwen3-8B; hf]"""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="qwen3-14b", family="dense",
+    n_layers=40, d_model=5120, n_heads=40, n_kv_heads=8, head_dim=128,
+    d_ff=17408, vocab=151936, qk_norm=True,
+    notes="qk-norm on per-head q/k",
+)

@@ -1,4 +1,5 @@
-"""Carry env and simulator state across from the JAX reference.
+"""Carry env, simulator state, model weights and KV caches across from the
+JAX reference.
 
 The reference's env dict (``repro.core.netsim.build_env``) and scan carry
 (``{"m": mandator state, "s": sporades state}``) have the same keys and
@@ -6,15 +7,25 @@ per-lane shapes as the port's; the port adds a leading lane axis ``B``.
 These helpers take the reference's trees as numpy arrays (one lane, or
 already batched) and return the port's tensors with matching dtypes, and
 back. The tests use them to start both packages from one mid-run state.
+
+The reference's model params (``repro.models.init_params``) stack every
+``blocks`` leaf ``[R, ...]`` over the R repeats of a super-block of
+``cfg.block_period`` layers; layer ``r * period + i`` of the port's
+``DecoderLM`` is entry ``r`` of ``blocks[i]``. Its KV cache has the same
+stacking. ``model_params_from_reference`` reads the params;
+``cache_from_reference`` and ``cache_to_numpy`` map the caches both
+ways.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, List
 
 import numpy as np
 import torch
 
 from repro_torch import device as _device
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import model as _model
 
 
 def _tree_to_torch(tree, add_lane: bool, device: torch.device):
@@ -48,3 +59,68 @@ def state_to_numpy(tree) -> Dict:
     if isinstance(tree, dict):
         return {k: state_to_numpy(v) for k, v in tree.items()}
     return tree.detach().cpu().numpy()
+
+
+def _flatten(tree: Dict, prefix: str = ""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flatten(v, f"{prefix}{k}.")
+        else:
+            yield f"{prefix}{k}", v
+
+
+def _leaf(a) -> torch.Tensor:
+    """A numpy leaf as a tensor; bfloat16 (numpy's ml_dtypes type, which
+    torch does not read) goes through float32, exactly."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    return torch.from_numpy(np.array(a))
+
+
+def model_params_from_reference(params_np: Dict, cfg: ModelConfig,
+                                device=None) -> _model.DecoderLM:
+    """The reference's param tree (numpy leaves, float32 or bfloat16) as
+    the port's DecoderLM on ``device`` (None = CUDA)."""
+    dev = _device.resolve(device)
+    period = cfg.block_period
+    state = {}
+    for key, value in params_np.items():
+        if key != "blocks":
+            state[key] = _leaf(value)
+            continue
+        for i, block in enumerate(value):
+            for name, leaf in _flatten(block):
+                leaf = np.asarray(leaf)
+                for r in range(leaf.shape[0]):
+                    state[f"layers.{r * period + i}.{name}"] = _leaf(leaf[r])
+    params = _model.init_params(cfg, 0, state["final_norm"].dtype, dev)
+    params.load_state_dict(state, strict=True)   # every name and shape
+    return params
+
+
+def cache_from_reference(cache_np: List[Dict], cfg: ModelConfig,
+                         device=None) -> List[Dict[str, torch.Tensor]]:
+    """The reference's KV cache (one {'k', 'v'} per super-block position,
+    leaves [R, B, S, Kh, Dh]) as the port's per-layer list."""
+    dev = _device.resolve(device)
+    period = cfg.block_period
+    out = []
+    for layer in range(cfg.n_layers):
+        r, i = divmod(layer, period)
+        out.append({k: torch.as_tensor(np.array(v[r]), device=dev)
+                    for k, v in cache_np[i].items()})
+    return out
+
+
+def cache_to_numpy(cache: List[Dict[str, torch.Tensor]],
+                   cfg: ModelConfig) -> List[Dict[str, np.ndarray]]:
+    """The port's per-layer KV cache in the reference's layout."""
+    period = cfg.block_period
+    out = []
+    for i in range(period):
+        layers = cache[i::period]
+        out.append({k: np.stack([c[k].detach().cpu().numpy()
+                                 for c in layers])
+                    for k in layers[0]})
+    return out

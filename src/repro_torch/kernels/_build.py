@@ -50,25 +50,59 @@ def _nvcc() -> str:
                        "built at first use and need the CUDA toolkit")
 
 
-def build(name: str) -> Built:
-    """Compile ``csrc/<name>.cu`` (or reuse its up-to-date build) and load
-    it."""
+def _target(name: str):
     source = CSRC / f"{name}.cu"
     digest = hashlib.sha256(source.read_bytes()
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out_dir = build_dir()
-    out = out_dir / f"{name}-{digest}.so"
+    return source, build_dir() / f"{name}-{digest}.so"
+
+
+def _start(name: str):
+    """Start nvcc on ``csrc/<name>.cu`` unless its library is up to date.
+    Returns (source, library, process or None, temporary output, start)."""
+    source, out = _target(name)
+    if out.exists():
+        return source, out, None, None, 0.0
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.parent / f".{out.stem}.{os.getpid()}.so"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return source, out, proc, tmp, time.perf_counter()
+
+
+def _finish(started) -> Built:
+    source, out, proc, tmp, t0 = started
     seconds, log = 0.0, ""
-    if not out.exists():
-        out_dir.mkdir(parents=True, exist_ok=True)
-        tmp = out_dir / f".{name}-{digest}.{os.getpid()}.so"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc is not None:
+        log, _ = proc.communicate()
         seconds = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed building {source} "
                                f"(exit {proc.returncode}):\n{log}")
         os.replace(tmp, out)
     return Built(ctypes.CDLL(str(out)), out, seconds, log)
+
+
+def build(name: str) -> Built:
+    """Compile ``csrc/<name>.cu`` (or reuse its up-to-date build) and load
+    it."""
+    return _finish(_start(name))
+
+
+def build_many(names) -> dict:
+    """``build`` for several sources with all their nvcc processes started
+    together; returns {name: Built}. Every process ends before the first
+    failed build raises. A library's ``seconds`` runs from its start to
+    the moment its output was read, so it may include waiting for
+    another."""
+    started = {n: _start(n) for n in names}
+    built, error = {}, None
+    for n, s in started.items():
+        try:
+            built[n] = _finish(s)
+        except RuntimeError as e:
+            error = error or e
+    if error is not None:
+        raise error
+    return built

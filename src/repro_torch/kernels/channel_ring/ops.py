@@ -2,15 +2,11 @@
 
 Called from ``core/channel.ring_commit`` once per protocol per tick. It
 packs the tick's send entries into the contiguous tensors the kernel takes
-and picks the backend from where the ring lives:
-
-  ``"auto"`` — the CUDA kernel (kernel.py) for a CUDA ring, the plain
-               PyTorch version (ref.py) for a CPU ring;
-  ``"ref"``  — the plain version on any device;
-  ``"cuda"`` — the kernel; raises for a CPU ring.
-
-The choice follows the device only. A build or launch error raises; there
-is no fallback from the kernel to the plain version.
+and picks the backend from where the ring lives, by the rule of
+``kernels/_dispatch.py``: ``"auto"`` is the CUDA kernel (kernel.py) for a
+CUDA ring and the plain PyTorch version (ref.py) for a CPU ring; ``"ref"``
+is the plain version anywhere; ``"cuda"`` is the kernel and raises for a
+CPU ring. There is no fallback from the kernel to the plain version.
 """
 from __future__ import annotations
 
@@ -19,11 +15,11 @@ from typing import Sequence, Tuple
 
 import torch
 
+from repro_torch.kernels import _dispatch
 from repro_torch.kernels.channel_ring import kernel
 from repro_torch.kernels.channel_ring.ref import (EntryLayout, as_layout,
                                                   ring_commit_ref)
 
-BACKENDS = ("auto", "ref", "cuda")
 
 # per-tick send entry, already mask-merged: (slot [B,n,n] int32,
 # vals [B,n,n,w] float32 with merge-neutral at masked-out links,
@@ -33,15 +29,7 @@ Entry = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
 def resolve_backend(backend: str, device: torch.device) -> str:
     """"ref" or "cuda" for a ring on ``device``."""
-    if backend not in BACKENDS:
-        raise ValueError(f"unknown channel backend {backend!r}; "
-                         f"one of {BACKENDS}")
-    if backend == "auto":
-        return "cuda" if device.type == "cuda" else "ref"
-    if backend == "cuda" and device.type != "cuda":
-        raise ValueError("channel_backend='cuda' needs the ring on a CUDA "
-                         f"device, got {device}")
-    return backend
+    return _dispatch.resolve_backend(backend, device, "channel")
 
 
 @functools.lru_cache(maxsize=64)

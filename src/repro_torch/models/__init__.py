@@ -1,0 +1,7 @@
+"""The model stack of the port: the dense decoder LM (``model.py``) and
+its layers (``layers.py``)."""
+from repro_torch.models.layers import CallConfig  # noqa: F401
+from repro_torch.models.model import (  # noqa: F401
+    forward_decode, forward_train, init_cache, init_params,
+    param_count_actual,
+)

@@ -1,0 +1,402 @@
+"""Core layers of the dense decoder LM: RMSNorm, RoPE, GQA attention
+(dense, chunked online-softmax, flash kernel), SwiGLU MLP. Plain PyTorch;
+the hand-written kernels are selected through ``CallConfig``, as the
+reference (``repro.models.layers``) selects its Pallas kernels:
+
+  ``use_pallas_norm``           -> ``kernels/rmsnorm`` (every ``rms_norm``);
+  ``attention_impl="pallas"``   -> ``kernels/flash_attention`` for full
+                                   causal self-attention (the prefill);
+                                   every other attention (decode with its
+                                   KV cache) takes the chunked path.
+
+``CallConfig.kernel_backend`` picks the kernels' backend ("auto": the CUDA
+kernel for CUDA tensors, the plain version for CPU tensors; "ref"; "cuda").
+
+Weights keep the reference's layout ([d_in, d_out], applied as ``x @ w``).
+As in the reference, activations and weights share one dtype.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional, Tuple, Union
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.kernels.rmsnorm import ops as rmsnorm_ops
+
+ATTENTION_IMPLS = ("dense", "chunked", "pallas")
+
+
+@dataclass(frozen=True)
+class CallConfig:
+    """How to execute the model (orthogonal to what the model is)."""
+    compute_dtype: torch.dtype = torch.bfloat16
+    # "dense" materializes [S, S] scores, "chunked" streams KV blocks with
+    # an online softmax, "pallas" sends full causal self-attention to the
+    # flash kernel (the rest as "chunked")
+    attention_impl: str = "dense"
+    attn_chunk: int = 512
+    use_pallas_norm: bool = False
+    # recompute each layer in the backward pass (torch.utils.checkpoint);
+    # only matters when autograd records the forward
+    remat: bool = True
+    # expand KV to full heads before attention
+    gqa_expand_kv: bool = False
+    # backend of the hand-written kernels: "auto" | "ref" | "cuda"
+    kernel_backend: str = "auto"
+    # the reference's mesh knobs; the port runs on one device
+    batch_axes: Tuple[str, ...] = ()
+    seq_axis: Optional[str] = None
+    moe_ep_axis: Optional[str] = None
+
+    def __post_init__(self):
+        if self.attention_impl not in ATTENTION_IMPLS:
+            raise ValueError(f"unknown attention_impl "
+                             f"{self.attention_impl!r}; one of "
+                             f"{ATTENTION_IMPLS}")
+        if (self.batch_axes or self.seq_axis is not None
+                or self.moe_ep_axis is not None):
+            raise NotImplementedError(
+                "mesh knobs (batch_axes, seq_axis, moe_ep_axis) are not "
+                "ported: the port runs on one device (ROADMAP A17.7)")
+
+
+def _inv_sqrt(d: int) -> float:
+    """1 / sqrt(d) rounded as float32 arithmetic rounds it."""
+    return float(np.float32(1.0) / np.sqrt(np.float32(d)))
+
+
+# ---------------------------------------------------------------------------
+# norms
+# ---------------------------------------------------------------------------
+
+def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5,
+             call: Optional[CallConfig] = None) -> torch.Tensor:
+    """The kernel path multiplies by ``w`` in fp32 and then casts to
+    ``x.dtype``; the plain path casts first and then multiplies (so it
+    returns the promoted dtype). In fp32 the two agree; in bf16 they round
+    differently, as in the reference."""
+    if call is not None and call.use_pallas_norm and x.dim() >= 2:
+        return rmsnorm_ops.rmsnorm(x, w, eps=eps,
+                                   backend=call.kernel_backend)
+    dt = x.dtype
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps)).to(dt) * w
+
+
+def head_rms_norm(x: torch.Tensor, w: torch.Tensor,
+                  eps: float = 1e-5) -> torch.Tensor:
+    """qk-norm: normalize over the head dim. x: [..., Dh], w: [Dh]."""
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    return ((xf * torch.rsqrt(var + eps)) * w).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# rope
+# ---------------------------------------------------------------------------
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    ar = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device)
+    return 1.0 / (theta ** (ar / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: [B, S, H, Dh]; positions: [B, S], [1, S] or [S]."""
+    freqs = rope_freqs(x.shape[-1], theta, x.device)        # [Dh/2]
+    if positions.dim() == 1:
+        positions = positions[None, :]
+    ang = positions[..., None].float() * freqs               # [B, S, Dh/2]
+    cos, sin = torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# attention cores
+# ---------------------------------------------------------------------------
+
+KvLen = Union[int, torch.Tensor]
+
+
+def _gqa_expand(q: torch.Tensor, n_kv: int) -> torch.Tensor:
+    """[B,S,H,D] -> [B,S,Kh,G,D]."""
+    b, s, h, d = q.shape
+    return q.reshape(b, s, n_kv, h // n_kv, d)
+
+
+def _lengths(kv_len: KvLen, device: torch.device) -> torch.Tensor:
+    """``kv_len`` (an int, or a scalar or [B] tensor) as a 1-D tensor."""
+    if isinstance(kv_len, torch.Tensor):
+        return kv_len.to(device).reshape(-1)
+    return torch.full((1,), int(kv_len), dtype=torch.int64, device=device)
+
+
+def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool, q_pos: Optional[torch.Tensor] = None,
+                    kv_len: Optional[KvLen] = None) -> torch.Tensor:
+    """Reference attention, materializes scores.
+
+    q: [B,Sq,H,D], k/v: [B,Sk,Kh,D].  GQA by head grouping.
+    ``kv_len``: optional int, scalar or [B] — mask cache positions >=
+    kv_len. ``q_pos``: positions of the queries (for causal masking vs
+    absolute kv idx).
+    """
+    b, sq, h, d = q.shape
+    kh = k.shape[2]
+    qg = _gqa_expand(q, kh)                                  # [B,Sq,Kh,G,D]
+    logits = torch.einsum("bqkgd,btkd->bkgqt", qg, k).float() * _inv_sqrt(d)
+    t_idx = torch.arange(k.shape[1], device=q.device)
+    if causal:
+        qp = q_pos if q_pos is not None else torch.arange(sq,
+                                                          device=q.device)
+        mask = t_idx[None, :] <= qp[:, None]                 # [Sq, Sk]
+        logits = logits.masked_fill(~mask[None, None, None], float("-inf"))
+    if kv_len is not None:
+        kvl = _lengths(kv_len, q.device).expand(b)
+        valid = t_idx[None, :] < kvl[:, None]                # [B, Sk]
+        logits = logits.masked_fill(~valid[:, None, None, None, :],
+                                    float("-inf"))
+    p = torch.softmax(logits, dim=-1).to(v.dtype)
+    out = torch.einsum("bkgqt,btkd->bqkgd", p, v)
+    return out.reshape(b, sq, h, d)
+
+
+def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      causal: bool, chunk: int = 512,
+                      q_pos: Optional[torch.Tensor] = None,
+                      kv_len: Optional[KvLen] = None) -> torch.Tensor:
+    """Flash-style online softmax over KV chunks — O(Sq·chunk) live
+    scores. The decode attention over the KV cache. Same signature as
+    dense_attention."""
+    b, sq, h, d = q.shape
+    sk, kh = k.shape[1], k.shape[2]
+    nchunk = -(-sk // chunk)
+    pad = nchunk * chunk - sk
+    if pad:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+    qg = _gqa_expand(q, kh)
+    scale = _inv_sqrt(d)
+    dev = q.device
+    qp = q_pos if q_pos is not None else torch.arange(sq, device=dev)
+    kvl = None if kv_len is None else _lengths(kv_len, dev)
+    neg = -1e30
+    g = h // kh
+    acc = torch.zeros((b, kh, g, sq, d), dtype=torch.float32, device=dev)
+    m = torch.full((b, kh, g, sq), float("-inf"), dtype=torch.float32,
+                   device=dev)
+    l = torch.zeros((b, kh, g, sq), dtype=torch.float32, device=dev)
+    for ci in range(nchunk):
+        kb = k[:, ci * chunk:(ci + 1) * chunk]
+        vb = v[:, ci * chunk:(ci + 1) * chunk]
+        t_idx = ci * chunk + torch.arange(chunk, device=dev)
+        logits = torch.einsum("bqkgd,btkd->bkgqt", qg, kb).float() * scale
+        # additive bias on small shapes — never a full-shape mask
+        if causal:
+            bias = torch.where(t_idx[None, :] <= qp[:, None], 0.0, neg)
+            logits = logits + bias[None, None, None]
+        if kvl is not None or pad:
+            vl = (torch.full((b,), sk, device=dev) if kvl is None else kvl)
+            vbias = torch.where(t_idx[None, :] < vl[:, None], 0.0, neg)
+            logits = logits + vbias[:, None, None, None]
+        m_new = torch.maximum(m, logits.amax(dim=-1))
+        p = torch.exp(logits - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        pv = torch.einsum("bkgqt,btkd->bkgqd", p.to(vb.dtype), vb)
+        acc = acc * corr[..., None] + pv.float()
+        m = m_new
+    out = acc / torch.clamp(l[..., None], min=1e-30)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, d).to(q.dtype)
+
+
+def _chunk_fwd_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                   causal: bool, chunk: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The forward of the reference's ``flash_chunked``, returning (out,
+    lse). Shapes as chunked_attention; Sk must be a multiple of chunk."""
+    b, sq, h, d = q.shape
+    sk, kh = k.shape[1], k.shape[2]
+    nchunk = sk // chunk
+    qg = _gqa_expand(q, kh)
+    scale = _inv_sqrt(d)
+    dev = q.device
+    qp = torch.arange(sq, device=dev)
+    g = h // kh
+    acc = torch.zeros((b, kh, g, sq, d), dtype=torch.float32, device=dev)
+    m = torch.full((b, kh, g, sq), float("-inf"), dtype=torch.float32,
+                   device=dev)
+    l = torch.zeros((b, kh, g, sq), dtype=torch.float32, device=dev)
+    for ci in range(nchunk):
+        kb = k[:, ci * chunk:(ci + 1) * chunk]
+        vb = v[:, ci * chunk:(ci + 1) * chunk]
+        t_idx = ci * chunk + torch.arange(chunk, device=dev)
+        logits = torch.einsum("bqkgd,btkd->bkgqt", qg, kb).float() * scale
+        if causal:
+            bias = torch.where(t_idx[None, :] <= qp[:, None], 0.0, -1e30)
+            logits = logits + bias[None, None, None]
+        m_new = torch.maximum(m, logits.amax(dim=-1))
+        p = torch.exp(logits - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        # probabilities at compute precision, products summed in fp32
+        pv = torch.einsum("bkgqt,btkd->bkgqd", p.to(vb.dtype).float(),
+                     vb.float())
+        acc = acc * corr[..., None] + pv
+        m = m_new
+    lse = m + torch.log(torch.clamp(l, min=1e-30))
+    out = acc / torch.clamp(l[..., None], min=1e-30)
+    out = out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, d).to(q.dtype)
+    return out, lse
+
+
+def flash_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  causal: bool, chunk: int) -> torch.Tensor:
+    """Forward of the reference's ``flash_chunked``. Its custom backward
+    (recompute per chunk from the saved lse) belongs to training, ROADMAP
+    A17.2; autograd through this forward is plain autograd."""
+    out, _ = _chunk_fwd_lse(q, k, v, causal=causal, chunk=chunk)
+    return out
+
+
+def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                   causal: bool, call: CallConfig,
+                   q_pos: Optional[torch.Tensor] = None,
+                   kv_len: Optional[KvLen] = None) -> torch.Tensor:
+    full_self = (causal and kv_len is None and q_pos is None
+                 and q.shape[1] == k.shape[1])
+    if call.attention_impl == "pallas" and full_self:
+        return flash_ops.flash_attention(q, k, v, causal=True,
+                                         backend=call.kernel_backend)
+    if call.attention_impl in ("chunked", "pallas"):
+        if full_self and k.shape[1] % call.attn_chunk == 0:
+            return flash_chunked(q, k, v, True, call.attn_chunk)
+        return chunked_attention(q, k, v, causal=causal,
+                                 chunk=call.attn_chunk, q_pos=q_pos,
+                                 kv_len=kv_len)
+    return dense_attention(q, k, v, causal=causal, q_pos=q_pos,
+                           kv_len=kv_len)
+
+
+# ---------------------------------------------------------------------------
+# attention layer (self), with KV cache for decode
+# ---------------------------------------------------------------------------
+
+class Weights(nn.Module):
+    """The named weights of one sublayer, as the reference's param dict
+    holds them (``p.wq`` for ``p["wq"]``)."""
+
+    def __init__(self, **weights: torch.Tensor):
+        super().__init__()
+        for name, w in weights.items():
+            self.register_parameter(name, nn.Parameter(w))
+
+
+def normal(gen: torch.Generator, shape, std: float, dtype,
+           device) -> torch.Tensor:
+    """N(0, std²) draws of ``shape`` from ``gen``, cast to ``dtype``."""
+    x = torch.randn(shape, generator=gen, device=device) * std
+    return x.to(dtype)
+
+
+def init_attention(cfg: ModelConfig, gen: torch.Generator,
+                   dtype=torch.float32, device=None) -> Weights:
+    """The reference's shapes and scales: wq [d, q_dim], wk/wv [d, kv_dim]
+    ~ N(0, 1/d), wo [q_dim, d] ~ N(0, 1/q_dim); zero bq/bk/bv with
+    qkv_bias, unit q_norm/k_norm [Dh] with qk_norm."""
+    d, qd, kvd = cfg.d_model, cfg.q_dim, cfg.kv_dim
+    w = {"wq": normal(gen, (d, qd), d ** -0.5, dtype, device),
+         "wk": normal(gen, (d, kvd), d ** -0.5, dtype, device),
+         "wv": normal(gen, (d, kvd), d ** -0.5, dtype, device),
+         "wo": normal(gen, (qd, d), qd ** -0.5, dtype, device)}
+    if cfg.qkv_bias:
+        for name, n in (("bq", qd), ("bk", kvd), ("bv", kvd)):
+            w[name] = torch.zeros((n,), dtype=dtype, device=device)
+    if cfg.qk_norm:
+        for name in ("q_norm", "k_norm"):
+            w[name] = torch.ones((cfg.head_dim,), dtype=dtype, device=device)
+    return Weights(**w)
+
+
+def self_attention(p: Weights, x: torch.Tensor, *, cfg: ModelConfig,
+                   call: CallConfig, positions: Union[int, torch.Tensor],
+                   cache: Optional[dict] = None
+                   ) -> Tuple[torch.Tensor, Optional[dict]]:
+    """x: [B,S,D]. Train/prefill: cache=None, positions [S] or [B,S];
+    returns no cache (the reference's unused ``max_seq`` prefill cache is
+    not ported). Decode: S==1 with cache {'k','v'} of [B, Smax, Kh, Dh]
+    and positions the int position being written. The port writes the
+    new K/V row into the cache tensors in place and returns them; a
+    position outside [0, Smax) raises (the reference's
+    dynamic_update_slice would clamp it)."""
+    b, s, _ = x.shape
+    h, kh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q, k, v = x @ p.wq, x @ p.wk, x @ p.wv
+    if cfg.qkv_bias:
+        q, k, v = q + p.bq, k + p.bk, v + p.bv
+    q = q.reshape(b, s, h, dh)
+    k = k.reshape(b, s, kh, dh)
+    v = v.reshape(b, s, kh, dh)
+    if cfg.qk_norm:
+        q = head_rms_norm(q, p.q_norm, cfg.norm_eps)
+        k = head_rms_norm(k, p.k_norm, cfg.norm_eps)
+    if call.gqa_expand_kv and kh < h:
+        k = k.repeat_interleave(h // kh, dim=2)
+        v = v.repeat_interleave(h // kh, dim=2)
+        kh = h
+    decode = cache is not None and s == 1
+    if decode:
+        pos = int(positions)
+        rope_pos = torch.full((1, 1), pos, dtype=torch.int64,
+                              device=x.device)
+    else:
+        rope_pos = positions if positions.dim() == 2 \
+            else positions.reshape(1, -1)
+    q = apply_rope(q, rope_pos, cfg.rope_theta)
+    k = apply_rope(k, rope_pos, cfg.rope_theta)
+
+    new_cache = None
+    if decode:
+        ck, cv = cache["k"], cache["v"]
+        if not 0 <= pos < ck.shape[1]:
+            raise ValueError(f"decode position {pos} outside the cache's "
+                             f"{ck.shape[1]} slots")
+        ck[:, pos] = k[:, 0]
+        cv[:, pos] = v[:, 0]
+        new_cache = {"k": ck, "v": cv}
+        out = attention_core(q, ck, cv, causal=False, call=call,
+                             kv_len=pos + 1)
+    else:
+        out = attention_core(q, k, v, causal=True, call=call)
+    out = out.reshape(b, s, h * dh)
+    return out @ p.wo, new_cache
+
+
+# ---------------------------------------------------------------------------
+# mlp
+# ---------------------------------------------------------------------------
+
+def init_mlp(cfg: ModelConfig, gen: torch.Generator, d_ff: int,
+             dtype=torch.float32, device=None) -> Weights:
+    """The reference's shapes and scales: w_gate/w_up [d, d_ff] ~
+    N(0, 1/d), w_down [d_ff, d] ~ N(0, 1/d_ff)."""
+    d = cfg.d_model
+    return Weights(w_gate=normal(gen, (d, d_ff), d ** -0.5, dtype, device),
+                   w_up=normal(gen, (d, d_ff), d ** -0.5, dtype, device),
+                   w_down=normal(gen, (d_ff, d), d_ff ** -0.5, dtype,
+                                  device))
+
+
+def swiglu(p: Weights, x: torch.Tensor) -> torch.Tensor:
+    g = x @ p.w_gate
+    u = x @ p.w_up
+    return (F.silu(g) * u) @ p.w_down

@@ -1,0 +1,211 @@
+"""Decoder LM composition: embed -> layers -> norm -> head, for the dense
+family (every layer an ``attn`` mixer with a dense SwiGLU MLP).
+
+The reference stacks parameters ``[R, ...]`` over repeats of a super-block
+and scans over them; the port holds one module per layer in
+``DecoderLM.layers`` and loops over them (``convert`` maps the two).
+
+Entry points (the reference's names and signatures; ``device=None`` means
+CUDA and raises without a card):
+  init_params(cfg, key, dtype, device)                 -> DecoderLM
+  forward_train(params, cfg, call, batch)              -> (logits, aux)
+  init_cache(cfg, batch, max_seq, dtype, device)       -> [per-layer cache]
+  forward_decode(params, cfg, call, batch, cache, pos) -> (logits, cache)
+
+The mamba, mlstm and slstm mixers, MoE and cross-attention layers raise
+``NotImplementedError`` naming their ROADMAP item.
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Tuple, Union
+
+import torch
+from torch import nn
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch import device as _device
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.layers import (CallConfig, normal,
+                                       init_attention, init_mlp, rms_norm,
+                                       self_attention, swiglu)
+
+# layer features of the reference that the port does not have yet
+_NOT_PORTED = {
+    "mamba": "the mamba mixer (ROADMAP A17.3)",
+    "mlstm": "the mLSTM mixer (ROADMAP A17.4)",
+    "slstm": "the sLSTM mixer (ROADMAP A17.4)",
+    "moe": "MoE layers (ROADMAP A17.5)",
+    "cross": "cross-attention layers (ROADMAP A17.6)",
+}
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise NotImplementedError for a config with a layer the port cannot
+    run yet."""
+    for i, kind in enumerate(cfg.layer_kinds()):
+        what = None
+        if kind != "attn":
+            what = _NOT_PORTED.get(kind, kind)
+        elif cfg.layer_has_moe(i):
+            what = _NOT_PORTED["moe"]
+        elif cfg.layer_has_cross_attn(i):
+            what = _NOT_PORTED["cross"]
+        if what is not None:
+            raise NotImplementedError(
+                f"{cfg.name}: layer {i} needs {what}, which is not ported")
+
+
+# ---------------------------------------------------------------------------
+# modules and init
+# ---------------------------------------------------------------------------
+
+class Layer(nn.Module):
+    """One decoder layer: norm1, the attention mixer, and (when d_ff) norm2
+    with the SwiGLU MLP."""
+
+    def __init__(self, cfg: ModelConfig, gen: torch.Generator,
+                 dtype=torch.float32, device=None):
+        super().__init__()
+        ones = dict(dtype=dtype, device=device)
+        self.norm1 = nn.Parameter(torch.ones((cfg.d_model,), **ones))
+        self.mixer = init_attention(cfg, gen, dtype, device)
+        if cfg.d_ff:
+            self.norm2 = nn.Parameter(torch.ones((cfg.d_model,), **ones))
+            self.mlp = init_mlp(cfg, gen, cfg.d_ff, dtype, device)
+
+
+class DecoderLM(nn.Module):
+    """embed [V, d] (when the config embeds tokens), head [d, V] (when it
+    is not tied), one ``Layer`` per layer, final_norm [d]."""
+
+    def __init__(self, cfg: ModelConfig, gen: torch.Generator,
+                 dtype=torch.float32, device=None):
+        super().__init__()
+        check_supported(cfg)
+        d = cfg.d_model
+        self.final_norm = nn.Parameter(torch.ones((d,), dtype=dtype,
+                                                  device=device))
+        if cfg.embed_inputs:
+            self.embed = nn.Parameter(
+                normal(gen, (cfg.vocab, d), 0.02, dtype, device))
+        if not cfg.tie_embeddings:
+            self.head = nn.Parameter(
+                normal(gen, (d, cfg.vocab), d ** -0.5, dtype, device))
+        self.layers = nn.ModuleList(Layer(cfg, gen, dtype, device)
+                                    for _ in range(cfg.n_layers))
+
+
+def init_params(cfg: ModelConfig, key: Union[int, torch.Generator] = 0,
+                dtype=torch.float32, device=None) -> DecoderLM:
+    """Random weights with the reference's shapes and scales
+    (``model.py:61-83``): embed ~ N(0, 0.02²), head ~ N(0, 1/d), the
+    layers as ``init_attention`` / ``init_mlp``, norms at one. ``key`` is
+    an int seed or a ``torch.Generator`` on ``device``. The values are the
+    port's own draws, not JAX's."""
+    dev = _device.resolve(device)
+    gen = key
+    if not isinstance(key, torch.Generator):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(int(key))
+    return DecoderLM(cfg, gen, dtype, dev)
+
+
+def param_count_actual(params: DecoderLM) -> int:
+    return sum(p.numel() for p in params.parameters())
+
+
+# ---------------------------------------------------------------------------
+# layer application
+# ---------------------------------------------------------------------------
+
+def _apply_layer(cfg: ModelConfig, call: CallConfig, lp: Layer,
+                 x: torch.Tensor, *, positions, cache: Optional[dict]
+                 ) -> Tuple[torch.Tensor, Optional[dict]]:
+    h = rms_norm(x, lp.norm1, cfg.norm_eps, call)
+    out, new_cache = self_attention(lp.mixer, h, cfg=cfg, call=call,
+                                    positions=positions, cache=cache)
+    x = x + out
+    if cfg.d_ff:
+        h2 = rms_norm(x, lp.norm2, cfg.norm_eps, call)
+        x = x + swiglu(lp.mlp, h2)
+    return x, new_cache
+
+
+# ---------------------------------------------------------------------------
+# forward (train / prefill)
+# ---------------------------------------------------------------------------
+
+def _embed(params: DecoderLM, cfg: ModelConfig, call: CallConfig,
+           batch: Dict) -> torch.Tensor:
+    if batch.get("vision_mem") is not None:
+        raise NotImplementedError(_NOT_PORTED["cross"] + " is not ported")
+    x = params.embed[batch["tokens"]] if cfg.embed_inputs \
+        else batch["frame_emb"]
+    return x.to(call.compute_dtype)
+
+
+def _head(params: DecoderLM, cfg: ModelConfig,
+          x: torch.Tensor) -> torch.Tensor:
+    w = params.embed.t() if cfg.tie_embeddings else params.head
+    return (x @ w).float()
+
+
+def forward_train(params: DecoderLM, cfg: ModelConfig, call: CallConfig,
+                  batch: Dict) -> Tuple[torch.Tensor, torch.Tensor]:
+    """batch: tokens [B,S] (or frame_emb [B,S,D]). Returns (logits
+    [B,S,V] fp32, aux_loss scalar — zero: no layer of the port has an
+    auxiliary loss)."""
+    x = _embed(params, cfg, call, batch)
+    positions = torch.arange(x.shape[1], device=x.device)
+
+    def layer(lp, x):
+        return _apply_layer(cfg, call, lp, x, positions=positions,
+                            cache=None)[0]
+
+    for lp in params.layers:
+        if call.remat and torch.is_grad_enabled():
+            x = checkpoint(layer, lp, x, use_reentrant=False)
+        else:
+            x = layer(lp, x)
+    x = rms_norm(x, params.final_norm, cfg.norm_eps, call)
+    return _head(params, cfg, x), torch.zeros((), device=x.device)
+
+
+# ---------------------------------------------------------------------------
+# decode
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
+               dtype=torch.bfloat16, device=None) -> List[dict]:
+    """One {'k', 'v'} pair of [batch, max_seq, Kh, Dh] zeros per layer
+    (the reference stacks them [R, ...] per super-block position;
+    ``convert.cache_to_numpy`` gives that layout)."""
+    check_supported(cfg)
+    dev = _device.resolve(device)
+    shape = (batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
+    return [{"k": torch.zeros(shape, dtype=dtype, device=dev),
+             "v": torch.zeros(shape, dtype=dtype, device=dev)}
+            for _ in range(cfg.n_layers)]
+
+
+@torch.no_grad()
+def forward_decode(params: DecoderLM, cfg: ModelConfig, call: CallConfig,
+                   batch: Dict, cache: List[dict], pos: int
+                   ) -> Tuple[torch.Tensor, List[dict]]:
+    """One decode step. batch: tokens [B] (or frame_emb [B,1,D]). pos: the
+    int position being written, in [0, max_seq) (a position outside raises;
+    the reference would clamp it). The cache is updated in place and
+    returned. Returns (logits [B,V] fp32, cache)."""
+    if len(cache) != cfg.n_layers:
+        raise ValueError(f"cache has {len(cache)} layers, the config "
+                         f"{cfg.n_layers}")
+    if cfg.embed_inputs:
+        batch = dict(batch, tokens=batch["tokens"][:, None])
+    x = _embed(params, cfg, call, batch)
+    pos = int(pos)
+    new_cache = []
+    for lp, lc in zip(params.layers, cache):
+        x, nc = _apply_layer(cfg, call, lp, x, positions=pos, cache=lc)
+        new_cache.append(nc)
+    x = rms_norm(x, params.final_norm, cfg.norm_eps, call)
+    return _head(params, cfg, x)[:, 0], new_cache

@@ -1,0 +1,243 @@
+"""The port's dense decoder LM against the reference's, for reduced
+smollm-135m (GQA, tied head) and reduced qwen3-14b (qk-norm, untied head),
+with the reference's weights carried across by ``convert``:
+
+- ``forward_train`` logits under "dense", "chunked" (both the flash_chunked
+  and the padded chunked path) and "pallas" + use_pallas_norm, against the
+  reference's under the same CallConfig (its Pallas kernels in interpret
+  mode): max abs difference below 1e-4;
+- a ``forward_decode`` loop: the logits of every step and the final cache
+  against the reference's loop, below 1e-4;
+- param accounting and ``init_params`` shapes, for every arch the port
+  runs; the others raise NotImplementedError naming their ROADMAP item.
+"""
+import dataclasses
+from functools import partial
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as jax_get_config
+from repro.configs import list_archs
+from repro.configs import param_count as jax_param_count
+from repro.models import CallConfig as JaxCall
+from repro.models import forward_decode as jax_decode
+from repro.models import forward_train as jax_forward
+from repro.models import init_cache as jax_init_cache
+from repro.models import init_params as jax_init_params
+from repro_torch import convert
+from repro_torch.configs import get_config, param_count
+from repro_torch.models import (CallConfig, forward_decode, forward_train,
+                                init_cache, init_params, param_count_actual)
+
+ARCHS = ("smollm-135m", "qwen3-14b")
+TOL = 1e-4
+CPU = "cpu"
+# (attention_impl, attn_chunk, use_pallas_norm): chunk 16 divides S=32, so
+# "chunked" takes flash_chunked; 512 does not, so it takes the padded
+# chunked_attention
+IMPLS = [("dense", 512, False), ("chunked", 16, False),
+         ("chunked", 512, False), ("pallas", 16, True)]
+DENSE_ARCHS = [a for a in list_archs()
+               if jax_get_config(a).family in ("dense", "audio")]
+
+
+def _calls(impl, chunk, pallas_norm):
+    kw = dict(attention_impl=impl, attn_chunk=chunk,
+              use_pallas_norm=pallas_norm, remat=False)
+    return (JaxCall(compute_dtype=jnp.float32, **kw),
+            CallConfig(compute_dtype=torch.float32, **kw))
+
+
+def _setup(arch, b, s, seed=0):
+    jcfg = jax_get_config(arch).reduced()
+    cfg = get_config(arch).reduced()
+    jparams = jax_init_params(jcfg, jax.random.PRNGKey(seed))
+    params = convert.model_params_from_reference(
+        jax.tree.map(np.asarray, jparams), cfg, device=CPU)
+    tokens = np.random.RandomState(seed).randint(0, cfg.vocab, (b, s))
+    return jcfg, cfg, jparams, params, tokens
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("impl,chunk,pallas_norm", IMPLS)
+def test_forward_train_matches_reference(arch, impl, chunk, pallas_norm):
+    jcfg, cfg, jparams, params, tokens = _setup(arch, 2, 32)
+    jcall, call = _calls(impl, chunk, pallas_norm)
+    want, _ = jax_forward(jparams, jcfg, jcall,
+                          {"tokens": jnp.asarray(tokens)})
+    with torch.no_grad():
+        got, aux = forward_train(params, cfg, call,
+                                 {"tokens": torch.from_numpy(tokens)})
+    assert got.shape == (2, 32, cfg.vocab) and got.dtype == torch.float32
+    assert float(aux) == 0.0
+    err = float(np.max(np.abs(got.numpy() - np.asarray(want))))
+    assert err < TOL, err
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("impl,chunk,pallas_norm",
+                         [IMPLS[0], IMPLS[3]])
+def test_decode_loop_matches_reference(arch, impl, chunk, pallas_norm):
+    b, s = 2, 8
+    jcfg, cfg, jparams, params, tokens = _setup(arch, b, s, seed=1)
+    jcall, call = _calls(impl, chunk, pallas_norm)
+    jcache = jax_init_cache(jcfg, b, s, jnp.float32)
+    cache = init_cache(cfg, b, s, torch.float32, device=CPU)
+    with torch.no_grad():
+        prefill, _ = forward_train(params, cfg, call,
+                                   {"tokens": torch.from_numpy(tokens)})
+    errs, self_errs = [], []
+    for t in range(s):
+        jl, jcache = jax_decode(jparams, jcfg, jcall,
+                                {"tokens": jnp.asarray(tokens[:, t])},
+                                jcache, jnp.int32(t))
+        lg, cache = forward_decode(params, cfg, call,
+                                   {"tokens": torch.from_numpy(tokens[:, t])},
+                                   cache, t)
+        assert lg.shape == (b, cfg.vocab)
+        errs.append(float(np.max(np.abs(lg.numpy() - np.asarray(jl)))))
+        self_errs.append(float((lg - prefill[:, t]).abs().max()))
+    assert max(errs) < TOL, errs
+    assert max(self_errs) < 5e-3, self_errs          # tests/test_models.py
+    ours = convert.cache_to_numpy(cache, cfg)
+    for i, (mine, ref) in enumerate(zip(ours, jcache)):
+        for key in ("k", "v"):
+            assert mine[key].shape == ref[key].shape
+            err = float(np.max(np.abs(mine[key] - np.asarray(ref[key]))))
+            assert err < TOL, (i, key, err)
+    # and back: the reference's cache read into the port is the port's
+    again = convert.cache_from_reference(
+        jax.tree.map(np.asarray, jcache), cfg, device=CPU)
+    for c_ref, c_port in zip(again, cache):
+        assert torch.allclose(c_ref["k"], c_port["k"], atol=TOL)
+
+
+def test_decode_position_outside_cache_raises():
+    cfg = get_config("smollm-135m").reduced()
+    params = init_params(cfg, 0, device=CPU)
+    cache = init_cache(cfg, 1, 4, torch.float32, device=CPU)
+    call = CallConfig(compute_dtype=torch.float32, remat=False)
+    with pytest.raises(ValueError, match="position 4"):
+        forward_decode(params, cfg, call,
+                       {"tokens": torch.zeros(1, dtype=torch.long)},
+                       cache, 4)
+
+
+@pytest.mark.parametrize("arch", list_archs())
+def test_config_copies_match_reference(arch):
+    mine, ref = get_config(arch), jax_get_config(arch)
+    assert dataclasses.asdict(mine) == dataclasses.asdict(ref)
+    for c_mine, c_ref in ((mine, ref), (mine.reduced(), ref.reduced())):
+        assert param_count(c_mine) == jax_param_count(c_ref)
+        assert c_mine.layer_kinds() == c_ref.layer_kinds()
+
+
+@pytest.mark.parametrize("arch", list_archs())
+def test_init_params_shapes_and_count(arch):
+    """Dense archs: the port's init_params has param_count(cfg) parameters
+    and the reference's tree of names and shapes (the reference's
+    eval_shape tree loads into it strictly). The others raise
+    NotImplementedError naming their ROADMAP item."""
+    cfg = get_config(arch).reduced()
+    if arch not in DENSE_ARCHS:
+        with pytest.raises(NotImplementedError, match="ROADMAP A17"):
+            init_params(cfg, 0, device=CPU)
+        with pytest.raises(NotImplementedError, match="ROADMAP A17"):
+            init_cache(cfg, 1, 4, device=CPU)
+        return
+    params = init_params(cfg, 0, device=CPU)
+    assert param_count_actual(params) == param_count(cfg)
+    shapes = jax.eval_shape(partial(jax_init_params, jax_get_config(arch)
+                                    .reduced()), jax.random.PRNGKey(0))
+    zeros = jax.tree.map(lambda a: np.zeros(a.shape, np.float32), shapes)
+    loaded = convert.model_params_from_reference(zeros, cfg, device=CPU)
+    assert ({n: t.shape for n, t in loaded.state_dict().items()}
+            == {n: t.shape for n, t in params.state_dict().items()})
+    # the scales of the draws: embed ~ N(0, 0.02^2), wq ~ N(0, 1/d)
+    if cfg.embed_inputs:
+        assert abs(float(params.embed.detach().std()) - 0.02) < 0.002
+    wq = params.layers[0].mixer.wq.detach()
+    assert abs(float(wq.std()) - cfg.d_model ** -0.5) < 0.1 * cfg.d_model ** -0.5
+
+
+def test_full_width_param_count():
+    """smollm-135m at full width: the count the chip run builds."""
+    cfg = get_config("smollm-135m")
+    assert param_count(cfg) == 134_515_008
+
+
+def test_mesh_knobs_raise():
+    for kw in ({"batch_axes": ("data",)}, {"seq_axis": "seq"},
+               {"moe_ep_axis": "expert"}):
+        with pytest.raises(NotImplementedError, match="ROADMAP A17"):
+            CallConfig(**kw)
+    with pytest.raises(ValueError, match="attention_impl"):
+        CallConfig(attention_impl="flash")
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_gqa_expand_kv_matches_reference(arch):
+    """KV heads repeated up front (``gqa_expand_kv``), under "chunked":
+    the same logits as the reference with the same flag."""
+    jcfg, cfg, jparams, params, tokens = _setup(arch, 2, 32)
+    kw = dict(attention_impl="chunked", attn_chunk=16, remat=False,
+              gqa_expand_kv=True)
+    want, _ = jax_forward(jparams, jcfg,
+                          JaxCall(compute_dtype=jnp.float32, **kw),
+                          {"tokens": jnp.asarray(tokens)})
+    with torch.no_grad():
+        got, _ = forward_train(params, cfg,
+                               CallConfig(compute_dtype=torch.float32, **kw),
+                               {"tokens": torch.from_numpy(tokens)})
+    assert float(np.max(np.abs(got.numpy() - np.asarray(want)))) < TOL
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("impl,chunk,pallas_norm",
+                         [IMPLS[0], IMPLS[1], IMPLS[3]])
+def test_bf16_forward_matches_reference(arch, impl, chunk, pallas_norm):
+    """Weights and compute in bfloat16, as the reference runs them (its
+    layer scan needs one dtype). Every product's output rounds to bf16 in
+    both packages, at places an ulp apart, so the bound is 2^-5 of the
+    largest logit (about four bf16 ulps there; measured up to two)."""
+    jcfg = jax_get_config(arch).reduced()
+    cfg = get_config(arch).reduced()
+    jparams = jax_init_params(jcfg, jax.random.PRNGKey(0), jnp.bfloat16)
+    params = convert.model_params_from_reference(
+        jax.tree.map(np.asarray, jparams), cfg, device=CPU)
+    assert params.final_norm.dtype == torch.bfloat16
+    tokens = np.random.RandomState(0).randint(0, cfg.vocab, (2, 32))
+    kw = dict(attention_impl=impl, attn_chunk=chunk,
+              use_pallas_norm=pallas_norm, remat=False)
+    want, _ = jax_forward(jparams, jcfg,
+                          JaxCall(compute_dtype=jnp.bfloat16, **kw),
+                          {"tokens": jnp.asarray(tokens)})
+    with torch.no_grad():
+        got, _ = forward_train(params, cfg,
+                               CallConfig(compute_dtype=torch.bfloat16, **kw),
+                               {"tokens": torch.from_numpy(tokens)})
+    assert got.dtype == torch.float32
+    want = np.asarray(want)
+    err = float(np.max(np.abs(got.numpy() - want)))
+    assert err < 2 ** -5 * float(np.abs(want).max()), err
+
+
+def test_remat_recomputes_the_same_forward():
+    """With autograd on, remat runs each layer under
+    torch.utils.checkpoint: the same logits and the same gradients."""
+    cfg = get_config("smollm-135m").reduced()
+    tokens = torch.from_numpy(np.random.RandomState(2).randint(
+        0, cfg.vocab, (2, 16)))
+    out = []
+    for remat in (False, True):
+        params = init_params(cfg, 0, device=CPU)
+        call = CallConfig(compute_dtype=torch.float32, remat=remat)
+        logits, _ = forward_train(params, cfg, call, {"tokens": tokens})
+        logits.square().mean().backward()
+        out.append((logits.detach(), params.layers[0].mixer.wq.grad))
+    assert torch.equal(out[0][0], out[1][0])
+    assert torch.allclose(out[0][1], out[1][1], atol=1e-7)

@@ -1,0 +1,88 @@
+"""The port's serving entry point on the CPU, and its greedy loop against
+the reference's (``repro.launch.serve``'s loop over ``forward_decode``)
+with the reference's weights carried across and one prompt: wherever the
+reference's top-2 logit gap exceeds the logits' tolerance (1e-4), both
+pick the same token; the comparison stops at the first step where it does
+not (a near tie may go either way, and the sequences then part)."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as jax_get_config
+from repro.models import CallConfig as JaxCall
+from repro.models import forward_decode as jax_decode
+from repro.models import init_cache as jax_init_cache
+from repro.models import init_params as jax_init_params
+from repro_torch import convert
+from repro_torch.configs import get_config
+from repro_torch.launch.serve import greedy_generate, serve
+from repro_torch.models import CallConfig, init_cache
+
+TOL = 1e-4
+
+
+@pytest.mark.parametrize("arch", ["smollm-135m", "qwen3-14b"])
+def test_serve_runs_on_cpu(arch):
+    out = serve(arch, reduced=True, batch=2, prompt_len=4, gen=6,
+                verbose=False, device="cpu")
+    toks = out["tokens"]
+    assert toks.shape == (2, 6) and toks.dtype == np.int32
+    assert ((toks >= 0) & (toks < get_config(arch).reduced().vocab)).all()
+    assert out["seconds"] > 0
+
+
+def _jax_greedy(params, cfg, call, tokens, gen):
+    """The reference serve()'s loop, with its logits kept."""
+    b, prompt_len = tokens.shape
+    cache = jax_init_cache(cfg, b, prompt_len + gen, jnp.float32)
+    decode = jax.jit(lambda p, c, bt, pos: jax_decode(p, cfg, call, bt, c,
+                                                      pos))
+    for t in range(prompt_len):
+        logits, cache = decode(params, cache,
+                               {"tokens": jnp.asarray(tokens[:, t])},
+                               jnp.int32(t))
+    out_t, out_l = [], []
+    for t in range(prompt_len, prompt_len + gen):
+        tok = jnp.argmax(logits, axis=-1).astype(jnp.int32)
+        out_t.append(np.asarray(tok))
+        out_l.append(np.asarray(logits))
+        if t < prompt_len + gen - 1:
+            logits, cache = decode(params, cache, {"tokens": tok},
+                                   jnp.int32(t))
+    return np.stack(out_t, axis=1), out_l
+
+
+@pytest.mark.parametrize("arch", ["smollm-135m", "qwen3-14b"])
+def test_greedy_tokens_match_reference(arch):
+    b, prompt_len, gen = 2, 6, 10
+    jcfg = jax_get_config(arch).reduced()
+    cfg = get_config(arch).reduced()
+    jparams = jax_init_params(jcfg, jax.random.PRNGKey(3))
+    params = convert.model_params_from_reference(
+        jax.tree.map(np.asarray, jparams), cfg, device="cpu")
+    tokens = np.random.RandomState(3).randint(0, cfg.vocab,
+                                              (b, prompt_len))
+    jcall = JaxCall(compute_dtype=jnp.float32, attention_impl="dense",
+                    remat=False)
+    call = CallConfig(compute_dtype=torch.float32, attention_impl="dense",
+                      remat=False)
+    want, want_logits = _jax_greedy(jparams, jcfg, jcall, tokens, gen)
+    cache = init_cache(cfg, b, prompt_len + gen, torch.float32,
+                       device="cpu")
+    with torch.no_grad():
+        got, got_logits = greedy_generate(
+            params, cfg, call, {"tokens": torch.from_numpy(tokens)}, cache,
+            prompt_len, gen)
+    assert got.shape == (b, gen)
+    got = got.numpy()
+    compared = 0
+    for step, (jl, pl) in enumerate(zip(want_logits, got_logits)):
+        top2 = np.sort(jl, axis=-1)[:, -2:]
+        if (top2[:, 1] - top2[:, 0]).min() <= TOL:
+            break
+        assert np.array_equal(got[:, step], want[:, step]), step
+        assert float(np.max(np.abs(pl.numpy() - jl))) < TOL
+        compared += 1
+    assert compared >= gen // 2, compared
