@@ -8,9 +8,10 @@ Run from the root of a checkout, with one card and no arguments:
 Phases, each printed as it ends; any failure exits non-zero:
 
   1. card   — nvidia-smi's name and power limit;
-  2. build  — nvcc builds the three kernels of csrc/ (channel_ring.cu,
-              rmsnorm.cu, flash_attention.cu; sm_90a), all started
-              together; build time and ptxas registers and spills;
+  2. build  — nvcc builds the five kernels of csrc/ (channel_ring.cu,
+              rmsnorm.cu, flash_attention.cu, ssm_scan.cu,
+              decode_attention.cu; sm_90a), all started together; build
+              time and ptxas registers and spills;
   3. kernel — random tick traffic (drops, in-slot collisions, 2*D ticks,
               D=256, B=16) through the sporades, mandator and additive ring
               layouts, kernel and plain PyTorch version bitwise equal after
@@ -48,7 +49,29 @@ Phases, each printed as it ends; any failure exits non-zero:
               steps profiled (launches per step, device busy share);
  10. serve  — serve("smollm-135m", reduced=False, batch=4, prompt_len=16,
               gen=32) through the entry point: tokens [4, 32];
- 11. the card's line, the kernels line, then the result line.
+ 11. ssm kernel — the selective scan against its plain version at the
+              Jamba mixer's [2, 2048, 16384, 16], a ragged [1, 1000, 16384,
+              16], the reference test's [2, 64, 32, 8] (float32) and the
+              mixer's shape with x, dt, B, C in bfloat16: max abs error,
+              time per launch (CUDA events, inputs cycled past the L2),
+              the bound and the plain version's time;
+ 12. decode kernel — flash-decoding through its entry point
+              (kernels/decode_attention/ops.py) at SmolLM-135M's decode
+              (B=4 H=9 Kh=3 D=64 S=2048, kv_len 256/1000/1777/2048), on the
+              reference's [B, Kh, S, D] layout and on the model cache's
+              [B, S, Kh, D] as a view (launch counts read around these two
+              calls only), then the kernel against its plain version and
+              SDPA at that shape and at qwen3-14b's (B=8 H=40 Kh=8 D=128
+              S=8192, full and ragged), float32 and bfloat16, and against
+              the model's chunked kv_len route (layers.chunked_attention);
+ 13. mamba  — the full-width Jamba-1.5-Large Mamba mixer (d_model 8192,
+              Di 16384, N 16, 403.6 M parameters, random weights from seed
+              0) on x [2, 2048, 8192] float32: mamba_forward with
+              use_kernel=True (one ssm_scan launch) and False (the chunked
+              scan), their difference, walls and tokens/s, a profile of
+              the kernel path; then mamba_decode token by token from a zero
+              state for 64 positions against the prefill's outputs;
+ 14. the card's line, the kernels line, then the result line.
 
 It imports nothing of JAX and nothing of the JAX package. Float32 matrix
 products and convolutions run in full float32 (TF32 off).
@@ -230,17 +253,16 @@ def phase_main(results: dict) -> None:
     from repro_torch.configs.smr import SMRConfig
     from repro_torch.core import experiment
     from repro_torch.core.experiment import SweepSpec, run_sweep
-    from repro_torch.kernels.channel_ring import kernel
 
     cfg = SMRConfig()
     spec = SweepSpec(rates=FIG6_RATES, seeds=FIG6_SEEDS)
     torch.cuda.synchronize()
-    kernel.launch_count = 0
+    _reset_counts()
     t0 = time.perf_counter()
     rows = run_sweep("mandator-sporades", cfg, spec)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = kernel.launch_count
+    launches = _counts()["channel_ring_commit"]
     ticks = int(cfg.sim_seconds * 1000 / cfg.tick_ms)
     horizon = experiment.timing_stats()["mandator-sporades"]["horizon"]
     for r in rows:
@@ -572,20 +594,24 @@ def _smollm():
     return cfg, params, tokens, call
 
 
-def _reset_counts():
+def _kernel_modules() -> dict:
+    """The kernels' wrapper modules, by the name the kernels line uses."""
     from repro_torch.kernels.channel_ring import kernel as ck
+    from repro_torch.kernels.decode_attention import kernel as dk
     from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.kernels.rmsnorm import kernel as rk
-    for k in (ck, fk, rk):
+    from repro_torch.kernels.ssm_scan import kernel as sk
+    return {"channel_ring_commit": ck, "rmsnorm": rk, "flash_attention": fk,
+            "ssm_scan": sk, "decode_attention": dk}
+
+
+def _reset_counts():
+    for k in _kernel_modules().values():
         k.launch_count = 0
 
 
 def _counts() -> dict:
-    from repro_torch.kernels.channel_ring import kernel as ck
-    from repro_torch.kernels.flash_attention import kernel as fk
-    from repro_torch.kernels.rmsnorm import kernel as rk
-    return {"channel_ring_commit": ck.launch_count,
-            "flash_attention": fk.launch_count, "rmsnorm": rk.launch_count}
+    return {name: k.launch_count for name, k in _kernel_modules().items()}
 
 
 def phase_prefill(results: dict, model) -> None:
@@ -729,60 +755,380 @@ def phase_serve(results: dict) -> None:
     results["serve_s"] = out["seconds"]
 
 
-def main() -> int:
+# ---------------------------------------------------------------------------
+# slice 3: the selective scan, flash-decoding, the full-width Mamba mixer
+# ---------------------------------------------------------------------------
+
+# (name, B, S, Di, N, dtype)
+SSM_CASES = (
+    ("jamba-mixer", 2, 2048, 16384, 16, "float32"),
+    ("ragged-S1000", 1, 1000, 16384, 16, "float32"),
+    ("reference-test", 2, 64, 32, 8, "float32"),
+    ("jamba-mixer-bf16", 2, 2048, 16384, 16, "bfloat16"),
+)
+# the reference's 1e-4 (tests/test_kernels.py); in bf16 the kernel rounds
+# y + D*x once and the plain version rounds y, then adds D*x in float32:
+# they differ by up to a bf16 ulp of the output, 2^-7 below 1 and 2^-6
+# below 2 (the mixer's outputs stay below 4)
+SSM_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+MIXER_DI_N = (16384, 16)            # the Jamba mixer's Di and N
+SFU_EXP_PER_S = 132 * 16 * 1.98e9   # H100 SXM: 16 MUFU.EX2 a clock per SM
+SMOLLM_LENS = (256, 1000, 1777, 2048)
+QWEN_LENS = (1, 333, 1024, 2900, 4097, 5555, 7000, 8191)
+# (name, B, H, Kh, D, S, kv_len (None: full), dtype, max abs tolerance).
+# float32: the reference's 5e-6 (tests/test_kernels.py, S <= 512) up to
+# S = 2048; at S = 8192 the kernel and the plain version add 4x as many
+# terms of l and acc in different orders, and their rounding grows with
+# the square root of the count: 2x, 1e-5. bfloat16: the plain version
+# rounds the scores and the probabilities to bf16, the kernel keeps them
+# float32, and both round the output once; each case is held at about 4x
+# the gap read on an H100 (2^-9 at SmolLM's shape and at qwen3-14b's
+# ragged kv_len, where SDPA is 2^-8 off the plain version; 2^-11 at its
+# full cache, where the outputs, means of ~3 000 keys, lie below 0.1 and a
+# dropped S-split moves them by ~0.02)
+DECODE_CASES = (
+    ("smollm-decode", 4, 9, 3, 64, 2048, SMOLLM_LENS, "float32", 5e-6),
+    ("smollm-decode-bf16", 4, 9, 3, 64, 2048, SMOLLM_LENS, "bfloat16",
+     8e-3),
+    ("qwen3-14b-full", 8, 40, 8, 128, 8192, None, "float32", 1e-5),
+    ("qwen3-14b-full-bf16", 8, 40, 8, 128, 8192, None, "bfloat16", 4e-3),
+    ("qwen3-14b-ragged", 8, 40, 8, 128, 8192, QWEN_LENS, "float32", 1e-5),
+    ("qwen3-14b-ragged-bf16", 8, 40, 8, 128, 8192, QWEN_LENS, "bfloat16",
+     8e-3))
+MAMBA_B, MAMBA_S, MAMBA_DECODE_STEPS = 2, 2048, 64
+MAMBA_REL_TOL = 1e-4      # max abs diff / max abs output, float32
+
+
+def jamba_mixer():
+    """(cfg, params, x): the full-width Jamba-1.5-Large Mamba mixer with
+    random weights from seed 0, and its input x [2, 2048, 8192] ~ N(0, 1)
+    (the scale an RMSNorm before it gives) from the same generator."""
     import torch
-    if not torch.cuda.is_available():
-        print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
-        return 1
-    import repro_torch  # noqa: F401  (fails outside a checkout)
-    from repro_torch.kernels import _build
-    from repro_torch.kernels.channel_ring import kernel as ck
-    from repro_torch.kernels.flash_attention import kernel as fk
-    from repro_torch.kernels.rmsnorm import kernel as rk
+    from repro_torch.configs import get_config
+    from repro_torch.models import ssm
+    cfg = get_config("jamba-1.5-large-398b")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    p = ssm.init_mamba(cfg, gen, torch.float32, "cuda")
+    x = torch.randn((MAMBA_B, MAMBA_S, cfg.d_model), generator=gen,
+                    device="cuda")
+    return cfg, p, x
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    card = card_line()
-    log("card", card)
-    log("card", f"torch {torch.__version__} cuda {torch.version.cuda} "
-                f"device {torch.cuda.get_device_name(0)}")
 
-    t0 = time.perf_counter()
-    built = _build.build_many((ck.NAME, rk.NAME, fk.NAME))
-    log("build", f"{len(built)} libraries in {time.perf_counter() - t0!r} s "
-                 "(nvcc processes started together)")
-    for name, b in built.items():
-        log("build", f"{b.path.name}: {b.seconds!r} s")
-        for line in b.log.splitlines():
-            if ("entry function" in line or "registers" in line
-                    or "spill" in line):
-                log("build", "  " + line.strip())
-    for k in (ck, rk, fk):
-        k.build()                     # binds the library just built
+def ssm_inputs(b, s, di, n, dtype, seed=0):
+    """(x, dt, B, C, A, D) with x, dt, B, C in ``dtype``, A and D float32.
+    At the Jamba mixer's Di and N: the values the full-width mixer feeds
+    its scan (``ssm.scan_inputs`` of ``jamba_mixer()``'s x[:b, :s]).
+    Otherwise the reference test's distributions (tests/test_kernels.py:
+    56-62): x ~ N(0, 0.25), dt = softplus(N(-1, 1)), B, C ~ N(0, 1),
+    A = -exp(N(0, 0.09)), D ~ N(0, 1)."""
+    import torch
+    dt = getattr(torch, dtype)
+    if (di, n) == MIXER_DI_N:
+        from repro_torch.models import ssm
+        _, p, x = jamba_mixer()
+        with torch.no_grad():
+            xc, dtv, B, C, A, _ = ssm.scan_inputs(p, x[:b, :s])
+        return (*(t.to(dt).contiguous() for t in (xc, dtv, B, C)), A,
+                p.D.detach())
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
 
-    results: dict = {}
-    start = time.perf_counter()
+    def r(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
 
-    def timed(name, fn, *args):
-        t = time.perf_counter()
-        fn(*args)
-        log("time", f"{name} {time.perf_counter() - t!r} s (run so far "
-                    f"{time.perf_counter() - start!r} s)")
+    x = (r(b, s, di) * 0.5).to(dt)
+    z = r(b, s, di) - 1
+    dtv = torch.logaddexp(z, torch.zeros_like(z)).to(dt)
+    B, C = r(b, s, n).to(dt), r(b, s, n).to(dt)
+    A = -torch.exp(r(di, n) * 0.3)
+    D = r(di)
+    return x, dtv, B, C, A, D
 
-    timed("kernel", phase_kernel, results)
-    timed("main", phase_main, results)
-    timed("profile", phase_profile, results)
-    timed("whole path", phase_whole_path)
-    timed("model kernels", phase_model_kernels, results)
-    model = _smollm()
-    timed("prefill", phase_prefill, results, model)
-    timed("decode", phase_decode, results, model)
-    del model
-    timed("serve", phase_serve, results)
 
+def check_ssm(b, s, di, n, dtype):
+    """Kernel against plain version on one case. Returns (max abs err,
+    inputs)."""
+    import torch
+    from repro_torch.kernels.ssm_scan import kernel, ref
+    inputs = ssm_inputs(b, s, di, n, dtype)
+    out = kernel.ssm_scan_cuda(*inputs)
+    want = ref.ssm_scan_ref(*inputs)
+    torch.cuda.synchronize()
+    if out.dtype != inputs[0].dtype or out.shape != inputs[0].shape:
+        raise AssertionError(f"ssm_scan output {out.dtype} {out.shape}")
+    return (out.float() - want.float()).abs().max().item(), inputs
+
+
+def ssm_bound(b, s, di, n, dtype):
+    """(bound ms, what bounds it, flops, bytes, exp ms): x and dt read and
+    y written once, B, C, A, D read once at 3.35 TB/s; 7 float32 operations
+    per (step, channel, state) (dt*A, exp, a*h, (dt*x)*B, +, h*C, +) and 3
+    per (step, channel) at 67 TFLOP/s; and the exponentials alone on the
+    special-function units, which the peak table does not show."""
+    es = 4 if dtype == "float32" else 2
+    nbytes = es * (3 * b * s * di + 2 * b * s * n) + 4 * (di * n + di)
+    flops = 7 * b * s * di * n + 3 * b * s * di
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS["float32"] * 1e3
+    exp_ms = b * s * di * n / SFU_EXP_PER_S * 1e3
+    if t_ops >= t_bytes:
+        return t_ops, "operations", flops, nbytes, exp_ms
+    return t_bytes, "bytes", flops, nbytes, exp_ms
+
+
+def phase_ssm_kernel(results: dict) -> None:
+    import torch
+    from repro_torch.kernels.ssm_scan import kernel, ref
+
+    cases = []
+    for name, b, s, di, n, dtype in SSM_CASES:
+        err, inputs = check_ssm(b, s, di, n, dtype)
+        if not err <= SSM_TOL[dtype]:
+            raise AssertionError(f"ssm_scan {name}: kernel vs plain {err} > "
+                                 f"{SSM_TOL[dtype]}")
+        bound_ms, bound_by, flops, nbytes, exp_ms = ssm_bound(b, s, di, n,
+                                                              dtype)
+        ms = device_ms(cycling(kernel.ssm_scan_cuda, inputs, nbytes),
+                       reps=10, rounds=5)
+        plain_ms = device_ms(cycling(ref.ssm_scan_ref, inputs, nbytes),
+                             reps=1, rounds=3)
+        cases.append({"case": name, "shape": [b, s, di, n], "dtype": dtype,
+                      "max_abs_err": err, "tol": SSM_TOL[dtype], "ms": ms,
+                      "plain_ms": plain_ms, "bound_ms": bound_ms,
+                      "bound_by": bound_by, "exp_bound_ms": exp_ms,
+                      "flops": flops, "bytes": nbytes, "library_ms": None})
+        log("ssm kernel", f"{name} [{b}, {s}, {di}, {n}] {dtype}: max abs "
+                          f"err {err!r} (tol {SSM_TOL[dtype]}), kernel "
+                          f"{ms!r} ms, plain {plain_ms!r} ms, bound "
+                          f"{bound_ms!r} ms by {bound_by} ({nbytes} bytes, "
+                          f"{flops} flop), exponentials alone {exp_ms!r} "
+                          f"ms ({nbytes / ms / 1e9!r} GB/s)")
+        del inputs
+        torch.cuda.empty_cache()
+    results["ssm"] = cases
+
+
+def decode_inputs(b, h, kh, d, s, lens, dtype, seed=0):
+    """q, k, v ~ N(0, 1) in ``dtype`` (k, v as [B, Kh, S, D]) and kv_len
+    (``lens``, or S for every sequence) as int32 on the card."""
+    import torch
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dt)
+               for shape in ((b, h, d), (b, kh, s, d), (b, kh, s, d)))
+    kv_len = torch.tensor(lens if lens is not None else (s,) * b,
+                          dtype=torch.int32, device="cuda")
+    return q, k, v, kv_len
+
+
+def check_decode(b, h, kh, d, s, lens, dtype):
+    """Kernel against plain version on one case. Returns (max abs err,
+    inputs)."""
+    import torch
+    from repro_torch.kernels.decode_attention import kernel, ref
+    inputs = decode_inputs(b, h, kh, d, s, lens, dtype)
+    out = kernel.decode_attention_cuda(*inputs)
+    want = ref.decode_attention_ref(*inputs)
+    torch.cuda.synchronize()
+    if out.dtype != inputs[0].dtype or out.shape != inputs[0].shape:
+        raise AssertionError(f"decode output {out.dtype} {out.shape}")
+    return (out.float() - want.float()).abs().max().item(), inputs
+
+
+def decode_bound(b, h, kh, d, s, lens, dtype):
+    """(bound ms, what bounds it, flops, bytes): K and V read up to each
+    sequence's kv_len, q read and out written, once, at 3.35 TB/s; 4*D
+    flops per (query head, visible key) at the float32 peak (the kernel's
+    arithmetic type)."""
+    es = 4 if dtype == "float32" else 2
+    keys = sum(min(n, s) for n in lens) if lens is not None else b * s
+    nbytes = es * (2 * keys * kh * d + 2 * b * h * d) + 4 * b
+    flops = 4 * d * (h // kh) * kh * keys
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS["float32"] * 1e3
+    if t_ops >= t_bytes:
+        return t_ops, "operations", flops, nbytes
+    return t_bytes, "bytes", flops, nbytes
+
+
+def phase_decode_kernel(results: dict) -> None:
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import kernel, ops, ref
+    from repro_torch.models.layers import chunked_attention
+
+    # the entry point, on both layouts: these two calls are the path
+    _, b, h, kh, d, s, lens, dtype, tol = DECODE_CASES[0]
+    q, k, v, kv_len = decode_inputs(b, h, kh, d, s, lens, dtype)
+    kc, vc = (t.transpose(1, 2).contiguous() for t in (k, v))   # [B,S,Kh,D]
+    torch.cuda.synchronize()
+    _reset_counts()
+    out = ops.decode_attention(q, k, v, kv_len)
+    out_cache = ops.decode_attention(q, kc.transpose(1, 2),
+                                     vc.transpose(1, 2), kv_len)
+    torch.cuda.synchronize()
+    launches = _counts()["decode_attention"]
+    want = ref.decode_attention_ref(q, k, v, kv_len)
+    chunked = chunked_attention(q[:, None], kc, vc, causal=False, chunk=512,
+                                kv_len=kv_len)[:, 0]
+    errs = {"entry": (out - want).abs().max().item(),
+            "cache_layout": (out_cache - want).abs().max().item(),
+            "vs_chunked_route": (out_cache - chunked).abs().max().item()}
+    log("decode kernel", f"entry point at smollm-decode: {launches} "
+                         f"launches; max abs vs plain {errs['entry']!r} "
+                         f"(reference layout), {errs['cache_layout']!r} "
+                         f"(cache layout view), vs layers.chunked_attention "
+                         f"{errs['vs_chunked_route']!r} (tol {tol})")
+    if launches != 2:
+        raise AssertionError(f"expected 2 decode_attention launches, got "
+                             f"{launches}")
+    if not max(errs.values()) <= tol:
+        raise AssertionError(f"decode attention entry point: {errs}")
+    results["decode_attention_path"] = {"launches": launches, **errs}
+
+    cases = []
+    for name, b, h, kh, d, s, lens, dtype, tol in DECODE_CASES:
+        err, (q, k, v, kv_len) = check_decode(b, h, kh, d, s, lens, dtype)
+        valid = (torch.arange(s, device="cuda")[None, :]
+                 < kv_len[:, None].long())
+        sdpa = F.scaled_dot_product_attention(
+            q[:, :, None], k, v, attn_mask=valid[:, None, None, :],
+            enable_gqa=True)[:, :, 0]
+        want = ref.decode_attention_ref(q, k, v, kv_len)
+        sdpa_err = (sdpa.float() - want.float()).abs().max().item()
+        if not err <= tol:
+            raise AssertionError(f"decode {name}: kernel vs plain {err} > "
+                                 f"{tol}")
+        bound_ms, bound_by, flops, nbytes = decode_bound(b, h, kh, d, s,
+                                                         lens, dtype)
+        ms = device_ms(cycling(kernel.decode_attention_cuda,
+                               (q, k, v, kv_len), nbytes), reps=20, rounds=5)
+        plain_ms = device_ms(cycling(ref.decode_attention_ref,
+                                     (q, k, v, kv_len), nbytes),
+                             reps=5, rounds=3)
+        library_ms = device_ms(cycling(
+            lambda q, k, v, m: F.scaled_dot_product_attention(
+                q[:, :, None], k, v, attn_mask=m, enable_gqa=True),
+            (q, k, v, valid[:, None, None, :]), nbytes), reps=20, rounds=5)
+        cases.append({"case": name, "shape": [b, h, kh, d, s],
+                      "kv_len": list(lens) if lens else None,
+                      "dtype": dtype, "max_abs_err": err, "tol": tol,
+                      "sdpa_vs_plain": sdpa_err, "ms": ms,
+                      "plain_ms": plain_ms, "library_ms": library_ms,
+                      "bound_ms": bound_ms, "bound_by": bound_by,
+                      "flops": flops, "bytes": nbytes})
+        log("decode kernel", f"{name} B={b} H={h} Kh={kh} D={d} S={s} "
+                             f"{dtype}: max abs err {err!r} (tol {tol}; "
+                             f"sdpa vs plain {sdpa_err!r}), kernel {ms!r} "
+                             f"ms ({nbytes / ms / 1e9!r} GB/s), plain "
+                             f"{plain_ms!r} ms, sdpa {library_ms!r} ms, "
+                             f"bound {bound_ms!r} ms by {bound_by} "
+                             f"({nbytes} bytes)")
+        del q, k, v, kv_len, valid, sdpa, want
+        torch.cuda.empty_cache()
+    results["decode_attention"] = cases
+
+
+def phase_mamba(results: dict) -> None:
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import ssm
+
+    torch.cuda.reset_peak_memory_stats()
+    cfg, p, x = jamba_mixer()
+    n_params = sum(t.numel() for t in p.parameters())
+    n_tok = MAMBA_B * MAMBA_S
+
+    def fwd(use_kernel):
+        return ssm.mamba_forward(p, x, cfg=cfg, use_kernel=use_kernel)
+
+    with torch.no_grad():
+        fwd(True)                                   # first calls
+        fwd(False)
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        y = fwd(True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _counts()
+        t0 = time.perf_counter()
+        y_plain = fwd(False)
+        torch.cuda.synchronize()
+        wall_plain = time.perf_counter() - t0
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fwd(True)
+            torch.cuda.synchronize()
+    scale = y_plain.abs().max().item()
+    diff = (y - y_plain).abs().max().item()
+    del y_plain
+    matmul_flops = 2 * n_tok * cfg.d_model * 3 * cfg.ssm.expand * cfg.d_model
+    log("mamba", f"{cfg.name} mixer full width ({n_params} params: d_model "
+                 f"{cfg.d_model}, Di {cfg.ssm.expand * cfg.d_model}, N "
+                 f"{cfg.ssm.d_state}), x [{MAMBA_B}, {MAMBA_S}, "
+                 f"{cfg.d_model}] float32: use_kernel=True {wall!r} s = "
+                 f"{n_tok / wall!r} tokens/s; use_kernel=False (chunked "
+                 f"scan) {wall_plain!r} s = {n_tok / wall_plain!r} tokens/s; "
+                 f"max abs diff {diff!r}, relative {diff / scale!r} (max "
+                 f"|out| {scale!r}; tol {MAMBA_REL_TOL} relative); launches "
+                 f"{counts}; peak memory {peak_gb!r} GB; w_in and w_out "
+                 f"need {matmul_flops} flop, {matmul_flops / 67e9!r} ms at "
+                 "67 TFLOP/s")
+    if not torch.isfinite(y).all():
+        raise AssertionError("mamba output is not finite")
+    if tuple(y.shape) != (MAMBA_B, MAMBA_S, cfg.d_model):
+        raise AssertionError(f"mamba output shape {tuple(y.shape)}")
+    if not diff <= MAMBA_REL_TOL * scale:
+        raise AssertionError(f"mamba kernel vs chunked scan: {diff} of "
+                             f"{scale}")
+    if counts["ssm_scan"] != 1:
+        raise AssertionError(f"expected 1 ssm_scan launch, got {counts}")
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    log("mamba", f"kernel path profiled: device busy {dev_ms!r} ms, "
+                 f"{sum(e.count for e in kernels)} kernel launches")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
+        log("mamba", f"  {e.self_device_time_total / 1e3!r} ms "
+                     f"x{e.count}  {e.key[:90]}")
+
+    state = ssm.mamba_init_state(cfg, MAMBA_B, torch.float32, "cuda")
+    errs = []
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for t in range(MAMBA_DECODE_STEPS):
+            out, state = ssm.mamba_decode(p, x[:, t:t + 1], state, cfg=cfg)
+            errs.append((out[:, 0] - y[:, t]).abs().max())
+        torch.cuda.synchronize()
+        ms_step = (time.perf_counter() - t0) * 1e3 / MAMBA_DECODE_STEPS
+    worst = torch.stack(errs).max().item()
+    log("mamba", f"mamba_decode {MAMBA_DECODE_STEPS} steps of B={MAMBA_B} "
+                 f"from a zero state: {ms_step!r} ms/step; vs the prefill's "
+                 f"outputs max abs diff {worst!r}, relative "
+                 f"{worst / scale!r} (tol {MAMBA_REL_TOL} relative)")
+    if not worst <= MAMBA_REL_TOL * scale:
+        raise AssertionError(f"mamba decode off the prefill: {worst}")
+    results["mamba"] = {
+        "params": n_params, "wall_s": wall, "tokens_per_s": n_tok / wall,
+        "plain_wall_s": wall_plain, "max_abs_diff": diff,
+        "rel_diff": diff / scale, "launches": counts,
+        "profiled_device_ms": dev_ms, "peak_gb": peak_gb,
+        "decode_ms_per_step": ms_step, "decode_max_diff": worst}
+
+
+def kernel_entries(results: dict) -> list:
+    """The kernels line: one entry per kernel."""
     sp = results["per_layout"]["sporades"]
     rms, flash = results["rmsnorm"][0], results["flash"][0]
-    kernels = [{
+    ssm, dec = results["ssm"][0], results["decode_attention"][0]
+    return [{
         "name": "channel_ring_commit",
         "route": "cuda",
         "source": "src/repro_torch/csrc/channel_ring.cu",
@@ -822,7 +1168,91 @@ def main() -> int:
         "bound_by": flash["bound_by"],
         "library_ms": flash["library_ms"],
         "cases": results["flash"],
+    }, {
+        "name": "ssm_scan",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/ssm_scan.cu",
+        "replaces": "src/repro/kernels/ssm_scan/kernel.py:20",
+        "launches": results["mamba"]["launches"]["ssm_scan"],
+        "max_abs_err": max(c["max_abs_err"] for c in results["ssm"]
+                           if c["dtype"] == "float32"),
+        "ms": ssm["ms"],
+        "plain_ms": ssm["plain_ms"],
+        "bound_ms": ssm["bound_ms"],
+        "bound_by": ssm["bound_by"],
+        "library_ms": None,
+        "exp_bound_ms": ssm["exp_bound_ms"],
+        "cases": results["ssm"],
+    }, {
+        "name": "decode_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/decode_attention.cu",
+        "replaces": "src/repro/kernels/decode_attention/kernel.py:25",
+        "launches": results["decode_attention_path"]["launches"],
+        "max_abs_err": dec["max_abs_err"],
+        "ms": dec["ms"],
+        "plain_ms": dec["plain_ms"],
+        "bound_ms": dec["bound_ms"],
+        "bound_by": dec["bound_by"],
+        "library_ms": dec["library_ms"],
+        "path": results["decode_attention_path"],
+        "cases": results["decode_attention"],
     }]
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
+        return 1
+    import repro_torch  # noqa: F401  (fails outside a checkout)
+    from repro_torch.kernels import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+    log("card", card)
+    log("card", f"torch {torch.__version__} cuda {torch.version.cuda} "
+                f"device {torch.cuda.get_device_name(0)}")
+
+    modules = _kernel_modules()
+    t0 = time.perf_counter()
+    built = _build.build_many(k.NAME for k in modules.values())
+    log("build", f"{len(built)} libraries in {time.perf_counter() - t0!r} s "
+                 "(nvcc processes started together)")
+    for name, b in built.items():
+        log("build", f"{b.path.name}: {b.seconds!r} s")
+        for line in b.log.splitlines():
+            if ("entry function" in line or "registers" in line
+                    or "spill" in line):
+                log("build", "  " + line.strip())
+    for k in modules.values():
+        k.build()                     # binds the library just built
+
+    results: dict = {}
+    start = time.perf_counter()
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        fn(*args)
+        log("time", f"{name} {time.perf_counter() - t!r} s (run so far "
+                    f"{time.perf_counter() - start!r} s)")
+
+    timed("kernel", phase_kernel, results)
+    timed("main", phase_main, results)
+    timed("profile", phase_profile, results)
+    timed("whole path", phase_whole_path)
+    timed("model kernels", phase_model_kernels, results)
+    model = _smollm()
+    timed("prefill", phase_prefill, results, model)
+    timed("decode", phase_decode, results, model)
+    del model
+    timed("serve", phase_serve, results)
+    timed("ssm kernel", phase_ssm_kernel, results)
+    timed("decode kernel", phase_decode_kernel, results)
+    timed("mamba", phase_mamba, results)
+
+    kernels = kernel_entries(results)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -11,9 +11,13 @@ back. The tests use them to start both packages from one mid-run state.
 The reference's model params (``repro.models.init_params``) stack every
 ``blocks`` leaf ``[R, ...]`` over the R repeats of a super-block of
 ``cfg.block_period`` layers; layer ``r * period + i`` of the port's
-``DecoderLM`` is entry ``r`` of ``blocks[i]``. Its KV cache has the same
-stacking. ``model_params_from_reference`` reads the params;
-``cache_from_reference`` and ``cache_to_numpy`` map the caches both
+``DecoderLM`` is entry ``r`` of ``blocks[i]``, for attention and Mamba
+layers alike (the mixer's leaves keep their names: ``wq ...`` or
+``w_in conv_w conv_b w_bc w_dt dt_bias A_log D w_out``). Its cache has
+the same stacking: ``{'k', 'v'}`` for an attention position,
+``{'conv', 'h'}`` for a Mamba one. ``model_params_from_reference`` reads
+the params, ``weights_from_reference`` one sublayer's (a Mamba mixer's,
+say); ``cache_from_reference`` and ``cache_to_numpy`` map the caches both
 ways.
 """
 from __future__ import annotations
@@ -26,6 +30,7 @@ import torch
 from repro_torch import device as _device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import model as _model
+from repro_torch.models.layers import Weights
 
 
 def _tree_to_torch(tree, add_lane: bool, device: torch.device):
@@ -99,23 +104,32 @@ def model_params_from_reference(params_np: Dict, cfg: ModelConfig,
     return params
 
 
+def weights_from_reference(tree_np: Dict, device=None) -> Weights:
+    """One sublayer's param dict of the reference (numpy leaves, e.g. the
+    ``init_mamba`` dict) as the port's ``Weights`` on ``device``."""
+    dev = _device.resolve(device)
+    return Weights(**{k: _leaf(v).to(dev) for k, v in tree_np.items()})
+
+
 def cache_from_reference(cache_np: List[Dict], cfg: ModelConfig,
                          device=None) -> List[Dict[str, torch.Tensor]]:
-    """The reference's KV cache (one {'k', 'v'} per super-block position,
-    leaves [R, B, S, Kh, Dh]) as the port's per-layer list."""
+    """The reference's cache (one dict per super-block position: {'k',
+    'v'} with leaves [R, B, S, Kh, Dh], or a Mamba layer's {'conv', 'h'}
+    with leaves [R, B, K-1, Di] and [R, B, Di, N]) as the port's per-layer
+    list."""
     dev = _device.resolve(device)
     period = cfg.block_period
     out = []
     for layer in range(cfg.n_layers):
         r, i = divmod(layer, period)
-        out.append({k: torch.as_tensor(np.array(v[r]), device=dev)
+        out.append({k: _leaf(np.asarray(v)[r]).to(dev)
                     for k, v in cache_np[i].items()})
     return out
 
 
 def cache_to_numpy(cache: List[Dict[str, torch.Tensor]],
                    cfg: ModelConfig) -> List[Dict[str, np.ndarray]]:
-    """The port's per-layer KV cache in the reference's layout."""
+    """The port's per-layer cache in the reference's layout."""
     period = cfg.block_period
     out = []
     for i in range(period):

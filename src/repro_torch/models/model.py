@@ -1,5 +1,7 @@
 """Decoder LM composition: embed -> layers -> norm -> head, for the dense
-family (every layer an ``attn`` mixer with a dense SwiGLU MLP).
+family (every layer an ``attn`` mixer with a dense SwiGLU MLP) and the
+hybrid one without MoE (``mamba`` mixers with ``attn`` between them, as
+jamba interleaves them).
 
 The reference stacks parameters ``[R, ...]`` over repeats of a super-block
 and scans over them; the port holds one module per layer in
@@ -12,8 +14,11 @@ CUDA and raises without a card):
   init_cache(cfg, batch, max_seq, dtype, device)       -> [per-layer cache]
   forward_decode(params, cfg, call, batch, cache, pos) -> (logits, cache)
 
-The mamba, mlstm and slstm mixers, MoE and cross-attention layers raise
-``NotImplementedError`` naming their ROADMAP item.
+The mlstm and slstm mixers, MoE and cross-attention layers raise
+``NotImplementedError`` naming their ROADMAP item. As in the reference
+(``model.py:173,267``), a Mamba layer of the model scans with the chunked
+scan, not the ssm_scan kernel; ``ssm.mamba_forward(use_kernel=True)`` is
+the kernel's entry point.
 """
 from __future__ import annotations
 
@@ -25,13 +30,15 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import device as _device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import ssm
 from repro_torch.models.layers import (CallConfig, normal,
                                        init_attention, init_mlp, rms_norm,
                                        self_attention, swiglu)
 
+# mixer kinds the port runs
+MIXERS = ("attn", "mamba")
 # layer features of the reference that the port does not have yet
 _NOT_PORTED = {
-    "mamba": "the mamba mixer (ROADMAP A17.3)",
     "mlstm": "the mLSTM mixer (ROADMAP A17.4)",
     "slstm": "the sLSTM mixer (ROADMAP A17.4)",
     "moe": "MoE layers (ROADMAP A17.5)",
@@ -44,7 +51,7 @@ def check_supported(cfg: ModelConfig) -> None:
     run yet."""
     for i, kind in enumerate(cfg.layer_kinds()):
         what = None
-        if kind != "attn":
+        if kind not in MIXERS:
             what = _NOT_PORTED.get(kind, kind)
         elif cfg.layer_has_moe(i):
             what = _NOT_PORTED["moe"]
@@ -60,15 +67,19 @@ def check_supported(cfg: ModelConfig) -> None:
 # ---------------------------------------------------------------------------
 
 class Layer(nn.Module):
-    """One decoder layer: norm1, the attention mixer, and (when d_ff) norm2
-    with the SwiGLU MLP."""
+    """One decoder layer: norm1, the mixer of its ``kind`` ("attn" or
+    "mamba"), and (when d_ff) norm2 with the SwiGLU MLP."""
 
-    def __init__(self, cfg: ModelConfig, gen: torch.Generator,
+    def __init__(self, cfg: ModelConfig, kind: str, gen: torch.Generator,
                  dtype=torch.float32, device=None):
         super().__init__()
+        self.kind = kind
         ones = dict(dtype=dtype, device=device)
         self.norm1 = nn.Parameter(torch.ones((cfg.d_model,), **ones))
-        self.mixer = init_attention(cfg, gen, dtype, device)
+        if kind == "mamba":
+            self.mixer = ssm.init_mamba(cfg, gen, dtype, device)
+        else:
+            self.mixer = init_attention(cfg, gen, dtype, device)
         if cfg.d_ff:
             self.norm2 = nn.Parameter(torch.ones((cfg.d_model,), **ones))
             self.mlp = init_mlp(cfg, gen, cfg.d_ff, dtype, device)
@@ -91,15 +102,16 @@ class DecoderLM(nn.Module):
         if not cfg.tie_embeddings:
             self.head = nn.Parameter(
                 normal(gen, (d, cfg.vocab), d ** -0.5, dtype, device))
-        self.layers = nn.ModuleList(Layer(cfg, gen, dtype, device)
-                                    for _ in range(cfg.n_layers))
+        self.layers = nn.ModuleList(Layer(cfg, kind, gen, dtype, device)
+                                    for kind in cfg.layer_kinds())
 
 
 def init_params(cfg: ModelConfig, key: Union[int, torch.Generator] = 0,
                 dtype=torch.float32, device=None) -> DecoderLM:
     """Random weights with the reference's shapes and scales
     (``model.py:61-83``): embed ~ N(0, 0.02²), head ~ N(0, 1/d), the
-    layers as ``init_attention`` / ``init_mlp``, norms at one. ``key`` is
+    layers as ``init_attention`` / ``ssm.init_mamba`` / ``init_mlp``,
+    norms at one. ``key`` is
     an int seed or a ``torch.Generator`` on ``device``. The values are the
     port's own draws, not JAX's."""
     dev = _device.resolve(device)
@@ -122,8 +134,14 @@ def _apply_layer(cfg: ModelConfig, call: CallConfig, lp: Layer,
                  x: torch.Tensor, *, positions, cache: Optional[dict]
                  ) -> Tuple[torch.Tensor, Optional[dict]]:
     h = rms_norm(x, lp.norm1, cfg.norm_eps, call)
-    out, new_cache = self_attention(lp.mixer, h, cfg=cfg, call=call,
-                                    positions=positions, cache=cache)
+    if lp.kind == "mamba":
+        if cache is not None:
+            out, new_cache = ssm.mamba_decode(lp.mixer, h, cache, cfg=cfg)
+        else:
+            out, new_cache = ssm.mamba_forward(lp.mixer, h, cfg=cfg), None
+    else:
+        out, new_cache = self_attention(lp.mixer, h, cfg=cfg, call=call,
+                                        positions=positions, cache=cache)
     x = x + out
     if cfg.d_ff:
         h2 = rms_norm(x, lp.norm2, cfg.norm_eps, call)
@@ -177,15 +195,21 @@ def forward_train(params: DecoderLM, cfg: ModelConfig, call: CallConfig,
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
                dtype=torch.bfloat16, device=None) -> List[dict]:
-    """One {'k', 'v'} pair of [batch, max_seq, Kh, Dh] zeros per layer
-    (the reference stacks them [R, ...] per super-block position;
+    """One cache per layer: {'k', 'v'} of [batch, max_seq, Kh, Dh] zeros for
+    an attention layer, ``ssm.mamba_init_state`` for a Mamba layer (the
+    reference stacks them [R, ...] per super-block position;
     ``convert.cache_to_numpy`` gives that layout)."""
     check_supported(cfg)
     dev = _device.resolve(device)
     shape = (batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
-    return [{"k": torch.zeros(shape, dtype=dtype, device=dev),
-             "v": torch.zeros(shape, dtype=dtype, device=dev)}
-            for _ in range(cfg.n_layers)]
+
+    def one(kind):
+        if kind == "mamba":
+            return ssm.mamba_init_state(cfg, batch, dtype, dev)
+        return {"k": torch.zeros(shape, dtype=dtype, device=dev),
+                "v": torch.zeros(shape, dtype=dtype, device=dev)}
+
+    return [one(kind) for kind in cfg.layer_kinds()]
 
 
 @torch.no_grad()
@@ -194,8 +218,9 @@ def forward_decode(params: DecoderLM, cfg: ModelConfig, call: CallConfig,
                    ) -> Tuple[torch.Tensor, List[dict]]:
     """One decode step. batch: tokens [B] (or frame_emb [B,1,D]). pos: the
     int position being written, in [0, max_seq) (a position outside raises;
-    the reference would clamp it). The cache is updated in place and
-    returned. Returns (logits [B,V] fp32, cache)."""
+    the reference would clamp it). An attention layer's cache is updated
+    in place, a Mamba layer's is replaced by its new state: use the
+    returned list. Returns (logits [B,V] fp32, cache)."""
     if len(cache) != cfg.n_layers:
         raise ValueError(f"cache has {len(cache)} layers, the config "
                          f"{cfg.n_layers}")

@@ -1,0 +1,185 @@
+"""The Mamba mixer (the reference's ``repro.models.ssm``, Mamba half):
+``init_mamba``, ``mamba_forward`` (train / prefill), ``mamba_init_state``
+and ``mamba_decode``, in plain PyTorch, with the selective scan either as
+the chunked scan below or, under ``use_kernel``, through
+``kernels/ssm_scan`` (the CUDA kernel on a card).
+
+The chunked scan runs the recurrence ``h_t = a_t h_{t-1} + b_t`` chunk by
+chunk, and within a chunk as a log-step doubling scan on ``[B, L, Di, N]``
+fp32 (7 steps for L = 128): live memory is bounded by the chunk, never
+``[B, S, Di, N]``. It associates the products differently from XLA's
+``lax.associative_scan``, so the two agree to rounding, not bitwise.
+
+Not ported here: the custom backward of the chunked scan (``_sel_bwd``,
+training, ROADMAP A17.2) and the mLSTM / sLSTM mixers (A17.4).
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.ssm_scan import ops as ssm_ops
+from repro_torch.models.layers import Weights, normal
+
+
+def init_mamba(cfg: ModelConfig, gen: torch.Generator, dtype=torch.float32,
+               device=None) -> Weights:
+    """The reference's shapes and scales (``ssm.py:29-44``): w_in [d, 2Di]
+    ~ N(0, 1/d), conv_w [K, Di] ~ N(0, 0.04), conv_b 0, w_bc [Di, 2N] and
+    w_dt [Di, 1] ~ N(0, 1/Di), dt_bias -3, A_log = log(1..N) per channel,
+    D 1, w_out [Di, d] ~ N(0, 1/Di)."""
+    s = cfg.ssm
+    d, di, n, k = cfg.d_model, s.expand * cfg.d_model, s.d_state, s.d_conv
+    kw = dict(dtype=dtype, device=device)
+    a_log = torch.log(torch.arange(1, n + 1, dtype=torch.float32,
+                                   device=device)).expand(di, n)
+    return Weights(
+        w_in=normal(gen, (d, 2 * di), d ** -0.5, dtype, device),
+        conv_w=normal(gen, (k, di), 0.2, dtype, device),
+        conv_b=torch.zeros((di,), **kw),
+        w_bc=normal(gen, (di, 2 * n), di ** -0.5, dtype, device),
+        w_dt=normal(gen, (di, 1), di ** -0.5, dtype, device),
+        dt_bias=torch.full((di,), -3.0, **kw),
+        A_log=a_log.to(dtype).contiguous(),
+        D=torch.ones((di,), **kw),
+        w_out=normal(gen, (di, d), di ** -0.5, dtype, device))
+
+
+def _softplus(x: torch.Tensor) -> torch.Tensor:
+    """jax.nn.softplus, log(1 + e^x) = logaddexp(x, 0) at every x
+    (F.softplus returns x itself above its threshold of 20)."""
+    return torch.logaddexp(x, torch.zeros_like(x))
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor,
+                 b: torch.Tensor) -> torch.Tensor:
+    """x: [B,S,Di], w: [K,Di] depthwise causal conv, as the reference's
+    shifted adds (a grouped F.conv1d would go to cuDNN, which runs float32
+    in TF32 by default)."""
+    k, s = w.shape[0], x.shape[1]
+    out = torch.zeros_like(x)
+    for j in range(k):
+        shift = k - 1 - j
+        xs = F.pad(x, (0, 0, shift, 0))[:, :s]
+        out = out + xs * w[j]
+    return out + b
+
+
+def _ssm_chunk_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Inclusive scan of h_t = a_t h_{t-1} + b_t over axis 1, by log-step
+    doubling: after the step with offset o, position t holds the
+    composition of positions t-2o+1 .. t. a, b: [B, L, Di, N] fp32;
+    h0: [B, Di, N]. Returns (h_all, h_last)."""
+    b = torch.cat([b[:, :1] + a[:, :1] * h0[:, None], b[:, 1:]], dim=1)
+    off, length = 1, a.shape[1]
+    while off < length:
+        b = torch.cat([b[:, :off], a[:, off:] * b[:, :-off] + b[:, off:]],
+                      dim=1)
+        a = torch.cat([a[:, :off], a[:, off:] * a[:, :-off]], dim=1)
+        off *= 2
+    return b, b[:, -1]
+
+
+def _chunked_scan(x, dt, B, C, A, D, chunk: int,
+                  h0: Optional[torch.Tensor]) -> torch.Tensor:
+    """The reference's two chunked paths in one: ``_ssm_fwd_core`` (the
+    forward of ``_selective_scan``, h0 = 0 and S a multiple of the chunk)
+    and the padded ``lax.scan`` branch of ``mamba_ssm`` (any S, any h0).
+    Padded steps have dt = 0, so they leave the state as it was, and their
+    outputs are cut off."""
+    bsz, s, di = x.shape
+    n = A.shape[1]
+    h = (torch.zeros((bsz, di, n), dtype=torch.float32, device=x.device)
+         if h0 is None else h0)
+    nchunk = -(-s // chunk)
+    pad = nchunk * chunk - s
+    xp, dtp, Bp, Cp = (F.pad(t, (0, 0, 0, pad)) if pad else t
+                       for t in (x, dt, B, C))
+    ys = []
+    for c in range(nchunk):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        dtf = dtp[:, sl].float()
+        a = torch.exp(dtf[..., None] * A)                        # [B,L,Di,N]
+        bmat = ((dtf * xp[:, sl].float())[..., None]
+                * Bp[:, sl, None, :].float())
+        h_all, h = _ssm_chunk_scan(a, bmat, h)
+        y = torch.einsum("blin,bln->bli", h_all, Cp[:, sl].float())
+        ys.append(y.to(x.dtype))
+    y = torch.cat(ys, dim=1)[:, :s]
+    return y + x * D
+
+
+def mamba_ssm(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
+              C: torch.Tensor, A: torch.Tensor, D: torch.Tensor, chunk: int,
+              h0: Optional[torch.Tensor] = None,
+              use_kernel: bool = False) -> torch.Tensor:
+    """Selective scan core. x, dt: [B,S,Di]; B, C: [B,S,N]; A: [Di,N];
+    D: [Di]. ``use_kernel`` sends it to ``kernels/ssm_scan`` (the CUDA
+    kernel for CUDA tensors), which starts from a zero state: with an
+    ``h0`` that raises, where the reference would silently drop it
+    (ROADMAP Queue C)."""
+    if use_kernel:
+        if h0 is not None:
+            raise ValueError("use_kernel=True scans from a zero state; an h0 "
+                             "needs use_kernel=False")
+        return ssm_ops.ssm_scan(x, dt, B, C, A, D)
+    return _chunked_scan(x, dt, B, C, A, D, chunk, h0)
+
+
+def scan_inputs(p: Weights, x: torch.Tensor):
+    """The mixer's input side, x: [B,S,D] -> (xc, dt, B, C, A, z): the
+    selective scan's inputs (A = -exp(A_log) in fp32; D is ``p.D``) and
+    the gate z."""
+    xin, z = (x @ p.w_in).chunk(2, dim=-1)
+    xc = F.silu(_causal_conv(xin, p.conv_w, p.conv_b))
+    B, C = (xc @ p.w_bc).chunk(2, dim=-1)
+    dt = _softplus(xc @ p.w_dt + p.dt_bias)
+    A = -torch.exp(p.A_log.float())
+    return xc, dt, B, C, A, z
+
+
+def mamba_forward(p: Weights, x: torch.Tensor, *, cfg: ModelConfig,
+                  use_kernel: bool = False) -> torch.Tensor:
+    """x: [B,S,D] -> [B,S,D]."""
+    xc, dt, B, C, A, z = scan_inputs(p, x)
+    y = mamba_ssm(xc, dt, B, C, A, p.D, cfg.ssm.chunk,
+                  use_kernel=use_kernel)
+    y = y * F.silu(z)
+    return y @ p.w_out
+
+
+def mamba_init_state(cfg: ModelConfig, batch: int, dtype,
+                     device=None) -> Dict[str, torch.Tensor]:
+    """{'conv': [batch, K-1, Di] of dtype, 'h': [batch, Di, N] fp32}, zero."""
+    di = cfg.ssm.expand * cfg.d_model
+    return {
+        "conv": torch.zeros((batch, cfg.ssm.d_conv - 1, di), dtype=dtype,
+                            device=device),
+        "h": torch.zeros((batch, di, cfg.ssm.d_state), dtype=torch.float32,
+                         device=device),
+    }
+
+
+def mamba_decode(p: Weights, x: torch.Tensor, state: Dict[str, torch.Tensor],
+                 *, cfg: ModelConfig
+                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """x: [B,1,D] -> (y [B,1,D], new state). The state passed in is not
+    changed."""
+    xin, z = (x @ p.w_in).chunk(2, dim=-1)
+    win = torch.cat([state["conv"], xin], dim=1)                 # [B,K,Di]
+    xc = F.silu(torch.einsum("bki,ki->bi", win, p.conv_w)
+                + p.conv_b)[:, None]
+    B, C = (xc @ p.w_bc).chunk(2, dim=-1)
+    dt = _softplus(xc @ p.w_dt + p.dt_bias)
+    A = -torch.exp(p.A_log.float())
+    dtf = dt[:, 0].float()                                       # [B,Di]
+    a = torch.exp(dtf[..., None] * A)                            # [B,Di,N]
+    bmat = (dtf * xc[:, 0].float())[..., None] * B[:, 0, None, :].float()
+    h = a * state["h"] + bmat
+    y = torch.einsum("bin,bn->bi", h, C[:, 0].float()).to(x.dtype)
+    y = (y + xc[:, 0] * p.D)[:, None] * F.silu(z)
+    return y @ p.w_out, {"conv": win[:, 1:], "h": h}

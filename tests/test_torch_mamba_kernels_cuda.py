@@ -1,0 +1,91 @@
+"""The CUDA selective-scan and flash-decoding kernels against their plain
+PyTorch versions on the card, at the shapes and tolerances of
+chip_smoke.py's ssm-kernel and decode-kernel phases (its own cases and
+helpers, so the two checks cannot drift apart), plus the backend rule and
+the strided cache layout on CUDA tensors. Skips without a CUDA device; run
+it on the card with
+
+    PYTHONPATH=src python -m pytest -q --noconftest <this file>
+
+(``--noconftest``: tests/conftest.py imports the JAX package.)
+"""
+import importlib.util
+from pathlib import Path
+
+import pytest
+import torch
+
+pytestmark = pytest.mark.cuda
+
+_SMOKE = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke", _SMOKE)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _need_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+
+
+@pytest.mark.parametrize("case", range(4))
+def test_ssm_scan_kernel_matches_plain(case):
+    _need_card()
+    from repro_torch.kernels.ssm_scan import kernel
+    smoke = _chip_smoke()
+    _, b, s, di, n, dtype = smoke.SSM_CASES[case]
+    before = kernel.launch_count
+    err, _ = smoke.check_ssm(b, s, di, n, dtype)
+    assert err <= smoke.SSM_TOL[dtype], err
+    assert kernel.launch_count == before + 1
+
+
+@pytest.mark.parametrize("case", range(6))
+def test_decode_kernel_matches_plain(case):
+    _need_card()
+    from repro_torch.kernels.decode_attention import kernel
+    smoke = _chip_smoke()
+    _, b, h, kh, d, s, lens, dtype, tol = smoke.DECODE_CASES[case]
+    before = kernel.launch_count
+    err, _ = smoke.check_decode(b, h, kh, d, s, lens, dtype)
+    assert err <= tol, err
+    assert kernel.launch_count == before + 1
+
+
+@pytest.mark.parametrize("n", [2, 4, 8, 16])
+def test_ssm_scan_state_sizes_and_ragged_widths(n):
+    """Every compiled N, at a Di that is no multiple of the block and an
+    S that is no multiple of the tile."""
+    _need_card()
+    smoke = _chip_smoke()
+    err, _ = smoke.check_ssm(3, 77, 200, n, "float32")
+    assert err <= smoke.SSM_TOL["float32"], err
+
+
+def test_auto_backend_and_cache_layout():
+    _need_card()
+    from repro_torch.kernels.decode_attention import kernel as dk
+    from repro_torch.kernels.decode_attention import ops as dops
+    from repro_torch.kernels.decode_attention import ref as dref
+    from repro_torch.kernels.ssm_scan import kernel as sk
+    from repro_torch.kernels.ssm_scan import ops as sops
+    smoke = _chip_smoke()
+    before = sk.launch_count
+    sops.ssm_scan(*smoke.ssm_inputs(1, 40, 64, 8, "float32"))
+    assert sk.launch_count == before + 1
+    q, k, v, kv_len = smoke.decode_inputs(2, 8, 2, 32, 100, (1, 100),
+                                          "float32")
+    kc = k.transpose(1, 2).contiguous()              # [B, S, Kh, D]
+    vc = v.transpose(1, 2).contiguous()
+    before = dk.launch_count
+    out = dops.decode_attention(q, kc.transpose(1, 2), vc.transpose(1, 2),
+                                kv_len)
+    assert dk.launch_count == before + 1
+    want = dref.decode_attention_ref(q, k, v, kv_len)
+    assert (out - want).abs().max().item() <= 5e-6
+    zero = dops.decode_attention(q, k, v, torch.zeros_like(kv_len))
+    assert torch.equal(zero, torch.zeros_like(zero))
