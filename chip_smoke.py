@@ -32,12 +32,16 @@ Phases, each printed as it ends; any failure exits non-zero:
               arrival table, bitwise equal;
   7. model kernels — RMSNorm ([8192, 576] and [4, 576], float32 and
               bfloat16, with and without residual) and flash attention
-              (SmolLM-135M's B=4 S=2048 H=9 Kh=3 D=64 causal in float32
-              and bfloat16, a ragged S=1000, qwen3-14b's D=128 H=40 Kh=8,
-              a non-causal case) against their plain versions, with the
-              time per launch (CUDA events), the bound, the plain
+              (SmolLM-135M's B=4 S=2048 H=9 Kh=3 D=64 causal, a ragged
+              S=1000, qwen3-14b's D=128 H=40 Kh=8, a non-causal S=512,
+              each in float32 (CUDA-core kernel) and bfloat16 (tensor-core
+              kernel)) against their plain versions, the bf16 cases also
+              against the kernel's rounding order (attention_kernel_order),
+              with the time per launch (CUDA events), the bound, the plain
               version's time and one PyTorch library call's
-              (F.rms_norm, F.scaled_dot_product_attention);
+              (F.rms_norm, F.scaled_dot_product_attention); each bf16 case
+              also times the CUDA-core kernel on the same inputs, the one
+              that served bf16 before the tensor-core kernel;
   8. prefill — full-width smollm-135m (random weights, seed 0) on tokens
               [4, 2048]: forward_train with the kernels (attention_impl=
               "pallas", use_pallas_norm) and with their plain versions;
@@ -62,8 +66,10 @@ Phases, each printed as it ends; any failure exits non-zero:
               [B, S, Kh, D] as a view (launch counts read around these two
               calls only), then the kernel against its plain version and
               SDPA at that shape and at qwen3-14b's (B=8 H=40 Kh=8 D=128
-              S=8192, full and ragged), float32 and bfloat16, and against
-              the model's chunked kv_len route (layers.chunked_attention);
+              S=8192, full and ragged), float32 and bfloat16 (the bf16
+              cases also against decode_attention_kernel_order at the
+              kernel's split plan), and against the model's chunked kv_len
+              route (layers.chunked_attention);
  13. mamba  — the full-width Jamba-1.5-Large Mamba mixer (d_model 8192,
               Di 16384, N 16, 403.6 M parameters, random weights from seed
               0) on x [2, 2048, 8192] float32: mamba_forward with
@@ -71,7 +77,18 @@ Phases, each printed as it ends; any failure exits non-zero:
               scan), their difference, walls and tokens/s, a profile of
               the kernel path; then mamba_decode token by token from a zero
               state for 64 positions against the prefill's outputs;
- 14. the card's line, the kernels line, then the result line.
+ 14. prefill bf16 — the same smollm-135m and tokens as phase 8 run as the
+              reference runs by default: bfloat16 weights and compute
+              (init_params(..., dtype=bfloat16), CallConfig(compute_dtype=
+              bfloat16, attention_impl="pallas", use_pallas_norm)), so that
+              flash attention takes the tensor-core kernel: walls and
+              tokens/s with the kernels and with their plain versions,
+              exactly 30 flash and 61 RMSNorm launches, the logits of both
+              held against a float32 forward of the same weights (the
+              kernels' error at most LOGITS_BF16_RATIO times the plain
+              path's), and a profile of one forward (flash's share of
+              device time);
+ 15. the card's line, the kernels line, then the result line.
 
 It imports nothing of JAX and nothing of the JAX package. Float32 matrix
 products and convolutions run in full float32 (TF32 off).
@@ -426,17 +443,40 @@ def _assert_same(a, b, names, what) -> None:
 RMS_CASES = tuple((n, 576, dt, res) for n in (8192, 4)
                   for dt in ("float32", "bfloat16") for res in (False, True))
 RMS_TOL = {"float32": 1e-5, "bfloat16": 3e-2}
-# (name, B, S, H, Kh, D, causal, dtype)
+# (name, B, S, H, Kh, D, causal, dtype); the bfloat16 cases at D 64 and
+# 128 run the tensor-core kernel, the float32 ones the CUDA-core kernel
 FLASH_CASES = (
     ("smollm-prefill", 4, 2048, 9, 3, 64, True, "float32"),
     ("smollm-prefill-bf16", 4, 2048, 9, 3, 64, True, "bfloat16"),
     ("ragged-S1000", 4, 1000, 9, 3, 64, True, "float32"),
     ("qwen3-14b-D128", 1, 2048, 40, 8, 128, True, "float32"),
     ("non-causal", 4, 512, 9, 3, 64, False, "float32"),
+    ("qwen3-14b-D128-bf16", 1, 2048, 40, 8, 128, True, "bfloat16"),
+    ("ragged-S1000-bf16", 4, 1000, 9, 3, 64, True, "bfloat16"),
+    ("non-causal-bf16", 4, 512, 9, 3, 64, False, "bfloat16"),
 )
 FLASH_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+# bf16 tensor-core kernel against attention_kernel_order, which rounds P
+# where the kernel does, element by element:
+#   |out - order| <= FLASH_ORDER_ULPS bf16 ulps of |order|
+#                    + FLASH_ORDER_P_FLIP * (softmax(q k^T / sqrt(D)) |v|).
+# Both round their float32 result to bf16 once (the ulps). Their float32
+# scores differ in the last bits, which can flip the bf16 rounding of a
+# p_j by one ulp, 2^-8 of it; were every p_j of a row to flip, its output
+# would move by at most 2^-8 * sum_j (p_j / l) |v_j|, which attention_ref
+# on |v| gives. A row's limit so follows its own keys: about 2^-8 * 0.8
+# for a late causal row of ~1000 N(0, 1) keys, where a dropped key tile
+# or a stale ring stage moves the output by ~0.01.
+FLASH_ORDER_ULPS = 2
+FLASH_ORDER_P_FLIP = 2.0 ** -8
 PREFILL_B, PREFILL_S, DECODE_STEPS = 4, 2048, 256
 LOGITS_TOL = 1e-3        # prefill logits, kernels vs plain, float32
+# bf16 prefill: the kernels' logits and the plain versions' are each held
+# against a float32 forward of the same (bf16-valued) weights and tokens;
+# the kernels' max and mean abs error may be at most this many times the
+# plain path's. Both round every activation to bf16; the kernels round in
+# another order (flash: P per 128-key tile; RMSNorm: its sum)
+LOGITS_BF16_RATIO = 1.5
 DECODE_TOL = 5e-3        # decode vs prefill logits (tests/test_models.py)
 
 
@@ -461,9 +501,26 @@ def check_rmsnorm(n, d, dtype, residual):
     return (out.float() - want.float()).abs().max().item(), (x, w, r)
 
 
+def order_excess(out, order, spread) -> float:
+    """The largest |out - order| in units of its limit, FLASH_ORDER_ULPS
+    bf16 ulps of |order| + FLASH_ORDER_P_FLIP * ``spread`` (softmax(q k^T)
+    |v| in float32): the kernel passes at <= 1."""
+    import torch
+    want = order.float()
+    mag = want.abs()
+    _, e = torch.frexp(mag)            # mag in [2^(e-1), 2^e): ulp 2^(e-8)
+    ulp = torch.where(mag > 0, torch.exp2((e - 8).float()),
+                      torch.zeros_like(mag))
+    lim = FLASH_ORDER_ULPS * ulp + FLASH_ORDER_P_FLIP * spread.float()
+    return ((out.float() - want).abs() / lim.clamp_min(2.0 ** -40)
+            ).max().item()
+
+
 def check_flash(b, s, h, kh, d, causal, dtype):
     """Kernel against plain version on one case, q, k, v ~ N(0, 1) in
-    ``dtype``. Returns (max abs err, inputs)."""
+    ``dtype``. Returns (max abs err vs attention_ref, max abs err vs
+    attention_kernel_order and its order_excess (both None in float32),
+    inputs)."""
     import torch
     from repro_torch.kernels.flash_attention import kernel, ref
     gen = torch.Generator(device="cuda")
@@ -473,10 +530,39 @@ def check_flash(b, s, h, kh, d, causal, dtype):
                for shape in ((b, s, h, d), (b, s, kh, d), (b, s, kh, d)))
     out = kernel.flash_attention_cuda(q, k, v, causal=causal)
     want = ref.attention_ref(q, k, v, causal=causal)
+    order = None
+    if dt == torch.bfloat16:
+        order = ref.attention_kernel_order(q, k, v, causal=causal,
+                                           block_k=kernel.TC_BLOCK_K)
     torch.cuda.synchronize()
     if out.dtype != q.dtype or out.shape != q.shape:
         raise AssertionError(f"flash output {out.dtype} {out.shape}")
-    return (out.float() - want.float()).abs().max().item(), (q, k, v)
+    err = (out.float() - want.float()).abs().max().item()
+    order_err = excess = None
+    if order is not None:
+        order_err = (out.float() - order.float()).abs().max().item()
+        spread = ref.attention_ref(q.float(), k.float(), v.float().abs(),
+                                   causal=causal)
+        excess = order_excess(out, order, spread)
+    return err, order_err, excess, (q, k, v)
+
+
+def flash_cuda_core(q, k, v, causal):
+    """The CUDA-core kernel on these inputs, also in bf16 (before the
+    tensor-core kernel it served bf16 at every head dim), launched
+    through the library directly so that it is not counted."""
+    import torch
+    from repro_torch.kernels.flash_attention import kernel as fk
+    out = torch.empty_like(q)
+    b, sq, h, d = q.shape
+    err = fk.build().lib.flash_attention_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq,
+        k.shape[1], h, k.shape[2], d, int(causal), 1.0 / math.sqrt(d),
+        fk.DTYPES[q.dtype], torch.cuda.current_device(),
+        torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention_launch failed: {err}")
+    return out
 
 
 def flash_bound(b, s, h, kh, d, causal, dtype):
@@ -547,10 +633,17 @@ def phase_model_kernels(results: dict) -> None:
 
     cases = []
     for name, b, s, h, kh, d, causal, dtype in FLASH_CASES:
-        err, (q, k, v) = check_flash(b, s, h, kh, d, causal, dtype)
+        err, order_err, excess, (q, k, v) = check_flash(b, s, h, kh, d,
+                                                        causal, dtype)
         if not err <= FLASH_TOL[dtype]:
             raise AssertionError(f"flash {name}: kernel vs plain {err} > "
                                  f"{FLASH_TOL[dtype]}")
+        if excess is not None and not excess <= 1:
+            raise AssertionError(f"flash {name}: kernel vs kernel order "
+                                 f"{excess} times its limit "
+                                 f"({FLASH_ORDER_ULPS} ulps + "
+                                 f"{FLASH_ORDER_P_FLIP} P|V|), max abs "
+                                 f"{order_err}")
         bound_ms, bound_by, flops, nbytes = flash_bound(b, s, h, kh, d,
                                                         causal, dtype)
         ms = device_ms(cycling(lambda q, k, v: fk.flash_attention_cuda(
@@ -562,34 +655,54 @@ def phase_model_kernels(results: dict) -> None:
                 q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                 is_causal=causal, enable_gqa=True), (q, k, v), nbytes),
             reps=10, rounds=5)
+        core_ms = core_err = None
+        if excess is not None:        # the tensor-core kernel ran
+            core_err = (flash_cuda_core(q, k, v, causal).float() - fref
+                        .attention_ref(q, k, v, causal=causal).float()
+                        ).abs().max().item()
+            if not core_err <= FLASH_TOL[dtype]:
+                raise AssertionError(f"flash {name}: CUDA-core kernel vs "
+                                     f"plain {core_err}")
+            core_ms = device_ms(cycling(lambda q, k, v: flash_cuda_core(
+                q, k, v, causal), (q, k, v), nbytes), reps=3, rounds=3)
         cases.append({"case": name, "shape": [b, s, h, kh, d],
                       "causal": causal, "dtype": dtype, "max_abs_err": err,
-                      "tol": FLASH_TOL[dtype], "ms": ms,
+                      "tol": FLASH_TOL[dtype], "order_err": order_err,
+                      "order_excess": excess, "ms": ms,
                       "plain_ms": plain_ms, "library_ms": library_ms,
                       "bound_ms": bound_ms, "bound_by": bound_by,
-                      "flops": flops, "bytes": nbytes})
+                      "flops": flops, "bytes": nbytes,
+                      "cuda_core_ms": core_ms, "cuda_core_err": core_err})
         log("model kernels", f"flash {name} B={b} S={s} H={h} Kh={kh} D={d}"
                              f" causal={causal} {dtype}: max abs err "
-                             f"{err!r} (tol {FLASH_TOL[dtype]}), kernel "
+                             f"{err!r} (tol {FLASH_TOL[dtype]}), vs kernel "
+                             f"order {order_err!r} ({excess!r} of its "
+                             f"limit), kernel "
                              f"{ms!r} ms ({flops / ms / 1e9!r} TFLOP/s), "
                              f"plain {plain_ms!r} ms, sdpa {library_ms!r} "
-                             f"ms, bound {bound_ms!r} ms by {bound_by}")
+                             f"ms, bound {bound_ms!r} ms by {bound_by}; "
+                             f"CUDA-core kernel {core_ms!r} ms (max abs "
+                             f"err {core_err!r})")
         del q, k, v
         torch.cuda.empty_cache()
     results["flash"] = cases
 
 
-def _smollm():
+def _smollm(dtype: str = "float32"):
+    """(cfg, params, tokens, call): full-width smollm-135m with random
+    weights from seed 0 and tokens [4, 2048], weights and compute in
+    ``dtype`` (bfloat16 is the reference's default), the kernels on."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import CallConfig, init_params
+    dt = getattr(torch, dtype)
     cfg = get_config("smollm-135m")
-    params = init_params(cfg, 0)
+    params = init_params(cfg, 0, dtype=dt)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1)
     tokens = torch.randint(0, cfg.vocab, (PREFILL_B, PREFILL_S),
                            generator=gen, device="cuda")
-    call = CallConfig(compute_dtype=torch.float32, attention_impl="pallas",
+    call = CallConfig(compute_dtype=dt, attention_impl="pallas",
                       use_pallas_norm=True, remat=False)
     return cfg, params, tokens, call
 
@@ -661,6 +774,117 @@ def phase_prefill(results: dict, model) -> None:
                           "plain_wall_s": wall_plain, "logits_diff": diff,
                           "launches": counts}
     results["prefill_logits"] = logits
+
+
+def phase_prefill_bf16(results: dict) -> None:
+    """The bf16 prefill: kernels against plain versions, each held against
+    a float32 forward of the same weights, wall and tokens/s of each (three
+    timed runs, median), launches, and a profile of one forward with flash
+    attention's share of device time."""
+    import copy
+    import dataclasses
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import forward_train
+
+    cfg, params, tokens, call = _smollm("bfloat16")
+    plain = dataclasses.replace(call, kernel_backend="ref")
+    batch = {"tokens": tokens}
+    with torch.no_grad():                # the float32 yardstick
+        exact, _ = forward_train(
+            copy.deepcopy(params).float(), cfg,
+            dataclasses.replace(plain, compute_dtype=torch.float32), batch)
+
+    def wall(c):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, _ = forward_train(params, cfg, c, batch)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, out
+
+    with torch.no_grad():
+        forward_train(params, cfg, call, batch)          # first calls
+        forward_train(params, cfg, plain, batch)
+        torch.cuda.synchronize()
+        _reset_counts()
+        walls = [wall(call)[0]]
+        counts = _counts()
+        walls += [wall(call)[0] for _ in range(2)]
+        plain_walls = [wall(plain)[0] for _ in range(3)]
+        _, logits = wall(call)
+        _, logits_plain = wall(plain)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            forward_train(params, cfg, call, batch)
+            torch.cuda.synchronize()
+    diff = (logits.float() - logits_plain.float()).abs().max().item()
+    scale = exact.abs().max().item()
+    errs = {}
+    for name, out in (("kernels", logits), ("plain", logits_plain)):
+        e = (out.float() - exact).abs()
+        errs[name] = {"max": e.max().item(), "mean": e.mean().item()}
+        del e
+    del logits_plain, exact
+    n_tok = PREFILL_B * PREFILL_S
+    w, wp = statistics.median(walls), statistics.median(plain_walls)
+    log("prefill bf16", f"{cfg.name} full width, bf16 weights and compute, "
+                        f"tokens [{PREFILL_B}, {PREFILL_S}]: kernels "
+                        f"{walls!r} s, median {w!r} s = {n_tok / w!r} "
+                        f"tokens/s; plain versions {plain_walls!r} s, "
+                        f"median {wp!r} s = {n_tok / wp!r} tokens/s; logits "
+                        f"vs a float32 forward (max |logit| {scale!r}): "
+                        f"kernels {errs['kernels']}, plain {errs['plain']} "
+                        f"(ratio at most {LOGITS_BF16_RATIO}); kernels vs "
+                        f"plain max abs {diff!r}; launches {counts}")
+    if not torch.isfinite(logits).all():
+        raise AssertionError("bf16 prefill logits are not finite")
+    if tuple(logits.shape) != (PREFILL_B, PREFILL_S, cfg.vocab):
+        raise AssertionError(f"bf16 prefill logits shape "
+                             f"{tuple(logits.shape)}")
+    for stat in ("max", "mean"):
+        if not errs["kernels"][stat] <= \
+                LOGITS_BF16_RATIO * errs["plain"][stat]:
+            raise AssertionError(f"bf16 prefill logits: the kernels' {stat} "
+                                 f"error vs float32 {errs['kernels'][stat]}"
+                                 f" > {LOGITS_BF16_RATIO} x the plain "
+                                 f"path's {errs['plain'][stat]}")
+    want_rms = 2 * cfg.n_layers + 1
+    if counts["flash_attention"] != cfg.n_layers \
+            or counts["rmsnorm"] != want_rms:
+        raise AssertionError(f"expected {cfg.n_layers} flash and "
+                             f"{want_rms} rmsnorm launches, got {counts}")
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    flash_ms = sum(e.self_device_time_total for e in kernels
+                   if "flash_tc_kernel" in e.key) / 1e3
+    # the profile is whole only if it kept every launch of the kernels
+    seen = {name: sum(e.count for e in kernels if name in e.key)
+            for name in ("flash_tc_kernel", "rmsnorm_kernel")}
+    results["prefill_bf16"] = {
+        "wall_s": w, "walls_s": walls, "tokens_per_s": n_tok / w,
+        "plain_wall_s": wp, "plain_walls_s": plain_walls,
+        "logits_diff": diff, "logits_scale": scale,
+        "logits_err_vs_f32": errs, "launches": counts,
+        "profiled_device_ms": dev_ms, "flash_device_ms": flash_ms,
+        "flash_share": flash_ms / dev_ms if dev_ms > 0 else None,
+        "profiled_kernel_launches": seen}
+    if dev_ms <= 0:
+        log("prefill bf16", "torch.profiler recorded no device time: "
+                            "flash's share not measured")
+        return
+    log("prefill bf16", f"one forward profiled: device busy {dev_ms!r} ms, "
+                        f"{sum(e.count for e in kernels)} kernel launches; "
+                        f"flash_tc_kernel {flash_ms!r} ms (share "
+                        f"{flash_ms / dev_ms!r}); launches the profile kept "
+                        f"{seen} of {counts['flash_attention']} flash and "
+                        f"{counts['rmsnorm']} rmsnorm")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
+        log("prefill bf16", f"  {e.self_device_time_total / 1e3!r} ms "
+                            f"x{e.count}  {e.key[:90]}")
 
 
 def phase_decode(results: dict, model) -> None:
@@ -795,6 +1019,10 @@ DECODE_CASES = (
     ("qwen3-14b-ragged", 8, 40, 8, 128, 8192, QWEN_LENS, "float32", 1e-5),
     ("qwen3-14b-ragged-bf16", 8, 40, 8, 128, 8192, QWEN_LENS, "bfloat16",
      8e-3))
+# bf16 decode kernel against decode_attention_kernel_order at the
+# kernel's split plan: about 4x the largest gap read on an H100 (2^-12 at
+# SmolLM's decode and qwen3-14b's ragged kv_len, 2^-13 at its full cache)
+DECODE_ORDER_TOL = 1e-3
 MAMBA_B, MAMBA_S, MAMBA_DECODE_STEPS = 2, 2048, 64
 MAMBA_REL_TOL = 1e-4      # max abs diff / max abs output, float32
 
@@ -924,17 +1152,28 @@ def decode_inputs(b, h, kh, d, s, lens, dtype, seed=0):
 
 
 def check_decode(b, h, kh, d, s, lens, dtype):
-    """Kernel against plain version on one case. Returns (max abs err,
-    inputs)."""
+    """Kernel against plain version on one case. Returns (max abs err vs
+    decode_attention_ref, max abs err vs decode_attention_kernel_order at
+    the kernel's split plan (None in float32), inputs)."""
     import torch
     from repro_torch.kernels.decode_attention import kernel, ref
     inputs = decode_inputs(b, h, kh, d, s, lens, dtype)
     out = kernel.decode_attention_cuda(*inputs)
     want = ref.decode_attention_ref(*inputs)
+    order = None
+    if inputs[0].dtype == torch.bfloat16:
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        per_sm = kernel.bf16_ctas_per_sm(d, 0)
+        _, chunk = kernel.bf16_plan(s, b * kh, sms, per_sm)
+        order = ref.decode_attention_kernel_order(
+            *inputs, chunk=chunk, tile=kernel.BF16_TILE)
     torch.cuda.synchronize()
     if out.dtype != inputs[0].dtype or out.shape != inputs[0].shape:
         raise AssertionError(f"decode output {out.dtype} {out.shape}")
-    return (out.float() - want.float()).abs().max().item(), inputs
+    err = (out.float() - want.float()).abs().max().item()
+    order_err = (None if order is None
+                 else (out.float() - order.float()).abs().max().item())
+    return err, order_err, inputs
 
 
 def decode_bound(b, h, kh, d, s, lens, dtype):
@@ -990,7 +1229,11 @@ def phase_decode_kernel(results: dict) -> None:
 
     cases = []
     for name, b, h, kh, d, s, lens, dtype, tol in DECODE_CASES:
-        err, (q, k, v, kv_len) = check_decode(b, h, kh, d, s, lens, dtype)
+        err, order_err, (q, k, v, kv_len) = check_decode(b, h, kh, d, s,
+                                                         lens, dtype)
+        if order_err is not None and not order_err <= DECODE_ORDER_TOL:
+            raise AssertionError(f"decode {name}: kernel vs kernel order "
+                                 f"{order_err} > {DECODE_ORDER_TOL}")
         valid = (torch.arange(s, device="cuda")[None, :]
                  < kv_len[:, None].long())
         sdpa = F.scaled_dot_product_attention(
@@ -1015,13 +1258,18 @@ def phase_decode_kernel(results: dict) -> None:
         cases.append({"case": name, "shape": [b, h, kh, d, s],
                       "kv_len": list(lens) if lens else None,
                       "dtype": dtype, "max_abs_err": err, "tol": tol,
+                      "order_err": order_err,
+                      "order_tol": DECODE_ORDER_TOL if order_err is not None
+                      else None,
                       "sdpa_vs_plain": sdpa_err, "ms": ms,
                       "plain_ms": plain_ms, "library_ms": library_ms,
                       "bound_ms": bound_ms, "bound_by": bound_by,
                       "flops": flops, "bytes": nbytes})
         log("decode kernel", f"{name} B={b} H={h} Kh={kh} D={d} S={s} "
                              f"{dtype}: max abs err {err!r} (tol {tol}; "
-                             f"sdpa vs plain {sdpa_err!r}), kernel {ms!r} "
+                             f"sdpa vs plain {sdpa_err!r}; vs kernel order "
+                             f"{order_err!r}, tol {DECODE_ORDER_TOL}), "
+                             f"kernel {ms!r} "
                              f"ms ({nbytes / ms / 1e9!r} GB/s), plain "
                              f"{plain_ms!r} ms, sdpa {library_ms!r} ms, "
                              f"bound {bound_ms!r} ms by {bound_by} "
@@ -1123,11 +1371,17 @@ def phase_mamba(results: dict) -> None:
         "decode_ms_per_step": ms_step, "decode_max_diff": worst}
 
 
+def _case(cases: list, name: str) -> dict:
+    return next(c for c in cases if c["case"] == name)
+
+
 def kernel_entries(results: dict) -> list:
     """The kernels line: one entry per kernel."""
     sp = results["per_layout"]["sporades"]
     rms, flash = results["rmsnorm"][0], results["flash"][0]
     ssm, dec = results["ssm"][0], results["decode_attention"][0]
+    flash16 = _case(results["flash"], "smollm-prefill-bf16")
+    dec16 = _case(results["decode_attention"], "qwen3-14b-full-bf16")
     return [{
         "name": "channel_ring_commit",
         "route": "cuda",
@@ -1167,6 +1421,12 @@ def kernel_entries(results: dict) -> list:
         "bound_ms": flash["bound_ms"],
         "bound_by": flash["bound_by"],
         "library_ms": flash["library_ms"],
+        "ms_bf16": flash16["ms"],
+        "library_ms_bf16": flash16["library_ms"],
+        "bound_ms_bf16": flash16["bound_ms"],
+        "earlier_ms_bf16": flash16["cuda_core_ms"],
+        "launches_bf16_prefill":
+            results["prefill_bf16"]["launches"]["flash_attention"],
         "cases": results["flash"],
     }, {
         "name": "ssm_scan",
@@ -1195,6 +1455,9 @@ def kernel_entries(results: dict) -> list:
         "bound_ms": dec["bound_ms"],
         "bound_by": dec["bound_by"],
         "library_ms": dec["library_ms"],
+        "ms_bf16": dec16["ms"],
+        "library_ms_bf16": dec16["library_ms"],
+        "bound_ms_bf16": dec16["bound_ms"],
         "path": results["decode_attention_path"],
         "cases": results["decode_attention"],
     }]
@@ -1228,6 +1491,15 @@ def main() -> int:
                 log("build", "  " + line.strip())
     for k in modules.values():
         k.build()                     # binds the library just built
+    fk, dk = modules["flash_attention"], modules["decode_attention"]
+    log("build", "dynamic shared memory of flash_tc_kernel (ptxas reports "
+                 "static memory only): "
+                 + ", ".join(f"D={d} {fk.tc_plan(d).smem_bytes} B"
+                             for d in fk.TC_HEAD_DIMS)
+                 + "; decode_bf16_kernel CTAs per SM (occupancy "
+                 "calculator): "
+                 + ", ".join(f"D={d} {dk.bf16_ctas_per_sm(d, 0)}"
+                             for d in dk.HEAD_DIMS))
 
     results: dict = {}
     start = time.perf_counter()
@@ -1251,6 +1523,7 @@ def main() -> int:
     timed("ssm kernel", phase_ssm_kernel, results)
     timed("decode kernel", phase_decode_kernel, results)
     timed("mamba", phase_mamba, results)
+    timed("prefill bf16", phase_prefill_bf16, results)
 
     kernels = kernel_entries(results)
     print(card)

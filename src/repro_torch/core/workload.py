@@ -106,7 +106,12 @@ def form_batches(wl: Dict, t: int, can_form: torch.Tensor,
         2, idx, torch.where(formed, arr_mean, 0.0)[..., None])
     wl["batch_count"].scatter_add_(2, idx, count[..., None])
     wl["buffer"] = wl["buffer"] - count
-    wl["buffer_tsum"] = wl["buffer_tsum"] - tsum_taken
+    # the reference's `buffer_tsum - tsum_taken` (src/repro/core/workload.py
+    # :106,122) is contracted by XLA on the CPU into one fused multiply-add
+    # of buffer_tsum and frac, rounded once; the float32 product of two
+    # float32 values is exact in float64, so this rounds as the FMA does
+    tsum = wl["buffer_tsum"].double()
+    wl["buffer_tsum"] = (tsum - tsum * frac.double()).float()
     wl["cpu_tokens"] = wl["cpu_tokens"] - count
     wl["last_batch_t"] = torch.where(formed, float(t), wl["last_batch_t"])
     return wl, formed, count

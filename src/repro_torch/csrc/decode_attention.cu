@@ -38,9 +38,40 @@
 // 0.16 ms at 3.35 TB/s; the 2 * G * D flops per key are 1.25 flop a byte
 // at G=5, far below the card's 20 float32 flop a byte. q, out and the
 // partials are a few megabytes.
+//
+// That kernel (decode_split_kernel) serves float32. bfloat16 takes
+// decode_bf16_kernel (namespace mma below), on the tensor cores, with the
+// same grid, strides and combine kernel; its split plan
+// (kernel.py::bf16_plan) cuts S into 64-key tiles and fills one wave of
+// the CTAs an SM holds (decode_bf16_ctas_per_sm, the occupancy
+// calculator's count). The CUDA-core kernel took the same time in bf16 as
+// in float32 (0.398 and 0.395 ms at qwen3-14b's full cache) for half the
+// bytes: it staged K and V as float32 from 2-byte loads, with one buffer
+// and two barriers a tile, and read p and V from shared memory with scalar
+// loads. Here:
+//   - K and V stay bf16 and are copied with 16-byte cp.async.cg per thread
+//     (zero-filled past kv_len) into a ring of 3 stages of 64 keys, one
+//     barrier a stage, so two tiles are in flight while one is computed;
+//     a row's 16-byte pieces are XOR-swizzled with its low bits, so that
+//     ldmatrix reads are free of bank conflicts;
+//   - the G <= 16 query heads of a KV head are the 16 rows of a
+//     mma.sync.m16n8k16 A operand, held in registers for the whole CTA
+//     (rows past G are zero); each warp takes 16 keys of every tile: the
+//     scores [16 x 16] from K through ldmatrix, an online softmax in
+//     base 2, P rounded to bf16 in registers as the A fragment of P V, V
+//     through ldmatrix.trans, O [16 x D] in registers;
+//   - the four warps' (m, l, O) are combined in shared memory at the end
+//     and written as the split's partials, which the combine kernel adds.
+// wgmma is not used: its 64 rows would pad G four times more, and the
+// kernel is bound by bytes, not by operations. Times (chip_smoke.py, H100
+// SXM at 700 W): 0.098 ms at qwen3-14b's full cache (bound 0.080 ms,
+// 2.74 TB/s; SDPA 0.108 ms), 0.0142 ms at SmolLM's decode (launch-bound).
+// (kernels/decode_attention/ref.py::decode_attention_kernel_order follows
+// this order on the CPU: per warp and split, P rounded to bf16 per tile.)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
@@ -51,9 +82,6 @@ constexpr int kMaxG = 16;          // query heads per KV head
 constexpr int kHeadsPerWarp = kMaxG / kWarps;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float v);
@@ -249,9 +277,378 @@ int launch(const void* q, const void* k, const void* v, const int* kv_len,
 
 }  // namespace
 
+// ---------------------------------------------------------------------------
+// The bfloat16 split kernel on the tensor cores.
+// ---------------------------------------------------------------------------
+namespace mma {
+
+constexpr int kTile = 64;          // keys per stage: 16 for each warp
+constexpr int kStages = 3;         // cp.async ring depth
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+template <int D>
+struct Cfg {
+  static constexpr int kRowBytes = D * 2;
+  static constexpr int kChunks = D / 8;              // 16-byte pieces a row
+  // XOR of a row's 16-byte pieces with its low bits, so that the 8 rows
+  // an ldmatrix reads lie in 8 different bank groups
+  static constexpr int kSwizzle = (kChunks < 8 ? kChunks : 8) - 1;
+  static constexpr int kTileBytes = kTile * kRowBytes;       // K or V
+  static constexpr int kSmem = kStages * 2 * kTileBytes;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from global to shared memory, or 16 zero bytes if !in.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool in) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(dst),
+               "l"(src), "r"(in ? 16 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+
+// c[16 x 8] += a[16 x 16] b[16 x 8], bf16 in, fp32 accumulated
+__device__ __forceinline__ void mma_bf16(float (&c)[4],
+                                         const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float r;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
+  return r;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Grid (split, Kh, B), 128 threads. The G query heads of KV head kh are
+// the rows of a 16-row A operand (rows >= G are zero). Each 64-key tile of
+// the ring is cut over the four warps, 16 keys each; a warp keeps its own
+// online softmax (m, l) and O [16 x D] in registers, and the four are
+// combined at the end. Scores and m are in base-2 units (scale_log2 =
+// log2(e) / sqrt(D)); the partial m is written in natural units, as the
+// combine kernel reads it.
+template <int D>
+__global__ void __launch_bounds__(128)
+decode_bf16_kernel(const __nv_bfloat16* __restrict__ q,
+                   const __nv_bfloat16* __restrict__ k,
+                   const __nv_bfloat16* __restrict__ v,
+                   const int* __restrict__ kv_len,
+                   float* __restrict__ part_acc, float* __restrict__ part_m,
+                   float* __restrict__ part_l, int H, int Kh, int S,
+                   int chunk, int splits, Strides ks_, Strides vs_,
+                   float scale_log2) {
+  using C = Cfg<D>;
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int split = blockIdx.x, kh = blockIdx.y, b = blockIdx.z;
+  const int G = H / Kh;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane / 4, quad = lane % 4;
+  const int len = max(0, min(kv_len[b], S));
+  const int s0 = split * chunk;
+  const int s1 = min(s0 + chunk, len);
+  const int n_tiles = s1 > s0 ? (s1 - s0 + kTile - 1) / kTile : 0;
+
+  const __nv_bfloat16* kb = k + b * ks_.b + kh * ks_.h;
+  const __nv_bfloat16* vb = v + b * vs_.b + kh * vs_.h;
+  const uint32_t ring = smem_u32(smem);
+
+  // the copies of tile t into stage t % kStages: K then V, 16 bytes a
+  // thread a step; keys at or past s1 are zero-filled
+  auto load = [&](int t) {
+    const uint32_t kd = ring + (t % kStages) * 2 * C::kTileBytes;
+    const uint32_t vd = kd + C::kTileBytes;
+    const int j0 = s0 + t * kTile;
+#pragma unroll
+    for (int i = 0; i < kTile * C::kChunks / 128; ++i) {
+      const int idx = tid + 128 * i;
+      const int r = idx / C::kChunks, c = idx % C::kChunks;
+      const bool in = j0 + r < s1;
+      const long long j = in ? j0 + r : s0;
+      const uint32_t off = r * C::kRowBytes
+                           + ((c ^ (r & C::kSwizzle)) * 16);
+      cp_async16(kd + off, kb + j * ks_.s + c * 8, in);
+      cp_async16(vd + off, vb + j * vs_.s + c * 8, in);
+    }
+  };
+
+  // Q as the A fragments of D / 16 k-steps: rows g and g + 8 are heads
+  const __nv_bfloat16* qb = q + ((long long)b * H + (long long)kh * G) * D;
+  uint32_t qa[D / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = g + 8 * (i & 1);
+      const int col = kk * 16 + 2 * quad + 8 * (i >> 1);
+      qa[kk][i] = row < G ? *reinterpret_cast<const uint32_t*>(
+                                qb + row * D + col)
+                          : 0u;
+    }
+  }
+
+  float o[D / 8][4];
+#pragma unroll
+  for (int c = 0; c < D / 8; ++c) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[c][e] = 0.f;
+  }
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+
+#pragma unroll
+  for (int t = 0; t < kStages - 1; ++t) {
+    if (t < n_tiles) load(t);
+    cp_async_commit();
+  }
+  for (int t = 0; t < n_tiles; ++t) {
+    cp_async_wait<kStages - 2>();      // this thread's copies of tile t
+    __syncthreads();                   // everyone's, and tile t-1 is read
+    if (t + kStages - 1 < n_tiles) load(t + kStages - 1);
+    cp_async_commit();
+
+    const uint32_t kt = ring + (t % kStages) * 2 * C::kTileBytes;
+    const uint32_t vt = kt + C::kTileBytes;
+    const int key_w = warp * 16;       // this warp's keys in the tile
+
+    // scores [16 heads x 16 keys] as two n8 pieces
+    float sc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int mi = lane / 8;
+      const int r = key_w + (mi / 2) * 8 + (lane % 8);
+      const int c = 2 * kk + (mi % 2);
+      uint32_t kf[4];
+      ldmatrix_x4(kf, kt + r * C::kRowBytes + ((c ^ (r & C::kSwizzle)) * 16));
+      mma_bf16(sc[0], qa[kk], kf[0], kf[1]);
+      mma_bf16(sc[1], qa[kk], kf[2], kf[3]);
+    }
+
+    const int j0 = s0 + t * kTile + key_w;
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int j = j0 + n * 8 + 2 * quad + (e & 1);
+        const float x = j < s1 ? sc[n][e] * scale_log2 : -INFINITY;
+        sc[n][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    }
+    float m_use[2], corr[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m[r], mx[r]);
+      // no valid key yet for this warp: p = 0 and corr = 0
+      m_use[r] = m_new == -INFINITY ? 0.f : m_new;
+      corr[r] = ex2(m[r] - m_use[r]);
+      m[r] = m_new;
+      l[r] *= corr[r];
+    }
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        sc[n][e] = ex2(sc[n][e] - m_use[e >> 1]);
+        l[e >> 1] += sc[n][e];
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < D / 8; ++c) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[c][e] *= corr[e >> 1];
+    }
+    // P [16 heads x 16 keys] as the A fragment, rounded to bf16
+    const uint32_t pa[4] = {pack_bf16(sc[0][0], sc[0][1]),
+                            pack_bf16(sc[0][2], sc[0][3]),
+                            pack_bf16(sc[1][0], sc[1][1]),
+                            pack_bf16(sc[1][2], sc[1][3])};
+    // O += P V, V [16 keys x D] through ldmatrix.trans, two n8 pieces a load
+#pragma unroll
+    for (int dc = 0; dc < D / 16; ++dc) {
+      const int mi = lane / 8;
+      const int r = key_w + (mi % 2) * 8 + (lane % 8);
+      const int c = 2 * dc + (mi / 2);
+      uint32_t vf[4];
+      ldmatrix_x4_trans(vf,
+                        vt + r * C::kRowBytes + ((c ^ (r & C::kSwizzle)) * 16));
+      mma_bf16(o[2 * dc], pa, vf[0], vf[1]);
+      mma_bf16(o[2 * dc + 1], pa, vf[2], vf[3]);
+    }
+  }
+
+  // combine the four warps through shared memory (the ring is free)
+  cp_async_wait<0>();
+  __syncthreads();
+  float* sm_o = reinterpret_cast<float*>(smem);        // [4][16][D]
+  float* sm_m = sm_o + 4 * 16 * D;                     // [4][16]
+  float* sm_l = sm_m + 4 * 16;                         // [4][16]
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    if (quad == 0) {
+      sm_m[warp * 16 + g + 8 * r] = m[r];
+      sm_l[warp * 16 + g + 8 * r] = l[r];
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < D / 8; ++c) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float2* dst = reinterpret_cast<float2*>(
+          sm_o + (warp * 16 + g + 8 * r) * D + c * 8 + 2 * quad);
+      *dst = make_float2(o[c][2 * r], o[c][2 * r + 1]);
+    }
+  }
+  __syncthreads();
+  const long long head0 = (long long)b * H + (long long)kh * G;
+  for (int idx = tid; idx < G * D; idx += 128) {
+    const int row = idx / D, col = idx % D;
+    float mw[4], mm = -INFINITY;
+#pragma unroll
+    for (int w = 0; w < 4; ++w) {
+      mw[w] = sm_m[w * 16 + row];
+      mm = fmaxf(mm, mw[w]);
+    }
+    float acc = 0.f, lsum = 0.f;
+    if (mm != -INFINITY) {
+#pragma unroll
+      for (int w = 0; w < 4; ++w) {
+        const float wt = ex2(mw[w] - mm);      // 0 for a warp with no key
+        acc = fmaf(sm_o[(w * 16 + row) * D + col], wt, acc);
+        lsum = fmaf(sm_l[w * 16 + row], wt, lsum);
+      }
+    }
+    part_acc[((head0 + row) * splits + split) * D + col] = acc;
+    if (col == 0) {
+      part_m[(head0 + row) * splits + split] = mm * kLn2;
+      part_l[(head0 + row) * splits + split] = lsum;
+    }
+  }
+}
+
+// Lets decode_bf16_kernel<D> take its ring's dynamic shared memory (once).
+template <int D>
+int allow_smem() {
+  static bool attr_set = false;
+  if (!attr_set) {
+    cudaError_t err = cudaFuncSetAttribute(
+        decode_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        Cfg<D>::kSmem);
+    if (err != cudaSuccess) return (int)err;
+    attr_set = true;
+  }
+  return 0;
+}
+
+// CTAs of decode_bf16_kernel<D> an SM holds at once (registers, shared
+// memory and threads counted by the occupancy calculator).
+template <int D>
+int ctas_per_sm(int* out) {
+  int err = allow_smem<D>();
+  if (err != 0) return err;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      out, decode_bf16_kernel<D>, 128, Cfg<D>::kSmem);
+}
+
+template <int D>
+int launch_split(const void* q, const void* k, const void* v,
+                 const int* kv_len, float* part_acc, float* part_m,
+                 float* part_l, int B, int H, int Kh, int S, int splits,
+                 int chunk, Strides ks, Strides vs, float scale,
+                 cudaStream_t stream) {
+  using C = Cfg<D>;
+  int err = allow_smem<D>();
+  if (err != 0) return err;
+  const dim3 grid((unsigned)splits, (unsigned)Kh, (unsigned)B);
+  decode_bf16_kernel<D><<<grid, 128, C::kSmem, stream>>>(
+      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
+      (const __nv_bfloat16*)v, kv_len, part_acc, part_m, part_l, H, Kh, S,
+      chunk, splits, ks, vs, scale * kLog2e);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace mma
+
+namespace {
+
+// The bf16 split kernel for head dim D, then the combine kernel.
+int launch_bf16(const void* q, const void* k, const void* v,
+                const int* kv_len, void* out, float* part_acc, float* part_m,
+                float* part_l, int B, int H, int Kh, int S, int D, int splits,
+                int chunk, Strides ks, Strides vs, float scale,
+                cudaStream_t stream) {
+  int err;
+  switch (D) {
+    case 16:
+      err = mma::launch_split<16>(q, k, v, kv_len, part_acc, part_m, part_l,
+                                  B, H, Kh, S, splits, chunk, ks, vs, scale,
+                                  stream);
+      break;
+    case 32:
+      err = mma::launch_split<32>(q, k, v, kv_len, part_acc, part_m, part_l,
+                                  B, H, Kh, S, splits, chunk, ks, vs, scale,
+                                  stream);
+      break;
+    case 64:
+      err = mma::launch_split<64>(q, k, v, kv_len, part_acc, part_m, part_l,
+                                  B, H, Kh, S, splits, chunk, ks, vs, scale,
+                                  stream);
+      break;
+    case 128:
+      err = mma::launch_split<128>(q, k, v, kv_len, part_acc, part_m,
+                                   part_l, B, H, Kh, S, splits, chunk, ks,
+                                   vs, scale, stream);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  if (err != 0) return err;
+  decode_combine_kernel<__nv_bfloat16><<<(unsigned)(B * H), D, 0, stream>>>(
+      part_acc, part_m, part_l, (__nv_bfloat16*)out, D, splits);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16 (q, k, v and out alike). part_acc is
+// dtype: 0 = float32 (decode_split_kernel), 1 = bfloat16
+// (decode_bf16_kernel; k and v 16-byte aligned, their strides multiples
+// of 8 elements), for q, k, v and out alike. part_acc is
 // [B, H, splits, D] float32 scratch, part_m and part_l [B, H, splits]. The
 // strides are in elements. Launches both kernels on `stream` (a
 // cudaStream_t) of device `device` and returns cudaGetLastError() as an
@@ -278,12 +675,26 @@ int decode_attention_launch(const void* q, const void* k, const void* v,
                          splits, chunk, ks, vs, scale, (cudaStream_t)stream);
   }
   if (dtype == 1) {
-    return launch<__nv_bfloat16>(q, k, v, (const int*)kv_len, out,
-                                 (float*)part_acc, (float*)part_m,
-                                 (float*)part_l, B, H, Kh, S, D, splits,
-                                 chunk, ks, vs, scale, (cudaStream_t)stream);
+    return launch_bf16(q, k, v, (const int*)kv_len, out, (float*)part_acc,
+                       (float*)part_m, (float*)part_l, B, H, Kh, S, D,
+                       splits, chunk, ks, vs, scale, (cudaStream_t)stream);
   }
   return (int)cudaErrorInvalidValue;
+}
+
+// The bfloat16 split kernel's CTAs per SM at head dim D on device
+// `device`, into *out (the wrapper's split plan fills one wave of them).
+// Returns a cudaError_t as an int (0 = done).
+int decode_bf16_ctas_per_sm(int D, int device, int* out) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  switch (D) {
+    case 16: return mma::ctas_per_sm<16>(out);
+    case 32: return mma::ctas_per_sm<32>(out);
+    case 64: return mma::ctas_per_sm<64>(out);
+    case 128: return mma::ctas_per_sm<128>(out);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 const char* decode_attention_error_string(int err) {

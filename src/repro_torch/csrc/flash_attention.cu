@@ -34,12 +34,51 @@
 // B * H * S(S+1)/2 visible (query, key) pairs, 1.93e10 flops, about 0.29 ms
 // at the card's 67 TFLOP/s in float32 without tensor cores (TF32 would
 // change the results); the bytes, 50 MB of q, k, v and out, take 0.015 ms.
-// This first kernel does the products on the CUDA cores, one FMA per
-// loaded float and a shuffle pair per score: wgmma, TMA and a cp.async
-// pipeline are later work.
+// This kernel does the products on the CUDA cores, one FMA per loaded
+// float and a shuffle pair per score. It serves float32 (the tensor cores
+// would mean TF32, which changes the results) and bfloat16 at D in
+// {16, 32}.
+//
+// bfloat16 at D in {64, 128}: flash_tc_kernel (namespace tc below), on the
+// tensor cores. Bound: operations, 1.93e10 flops at the prefill's shape,
+// 0.0196 ms at the card's 989 TFLOP/s in bf16 (the CUDA-core kernel took
+// 1.72 ms there, bf16 and float32 alike, because it widened K and V to
+// float32 one element at a time). Design, after FlashAttention-3:
+//   - one CTA per (128-row query tile, head, batch), 288 threads: two
+//     consumer warpgroups of 64 query rows each and one producer warp;
+//   - the producer's one thread copies the Q tile once and K and V tiles
+//     of 128 keys into a ring of 3 (D = 64) or 2 (D = 128) stages with TMA
+//     (a 4-D tensor map over [B, S, heads, D], boxes of 64 columns, so a
+//     box row is 128 bytes, 128-byte swizzled; rows past S come back as
+//     zeros), counted on mbarriers; K and V stay bf16;
+//   - S = Q K^T is wgmma m64n128k16 with both operands in shared memory;
+//     the scale, the mask (only on tiles that cross Sk or the diagonal)
+//     and the online softmax run on the fp32 accumulator in registers,
+//     in base 2 (ex2.approx), a row's max taken over the four threads
+//     that hold it with two shuffles;
+//   - P is cast to bf16 in registers: the m64 accumulator layout of S is
+//     the A-fragment layout of each k16 slice of P, so O += P V is wgmma
+//     m64nDk16 with A from registers and V from shared memory read
+//     MN-major (the transpose bit), no shared-memory round trip for P;
+//   - causal CTAs skip the key tiles wholly above the diagonal, and the
+//     query tiles are launched heaviest first (the tile index is the grid's
+//     slowest axis, reversed), so the last wave is not a tail of long
+//     tiles;
+//   - the output, O / max(l, 1e-30) in bf16, goes through the warpgroup's
+//     rows of the Q tile to 16-byte stores; rows >= Sq are never written.
+// The row sum l adds the fp32 probabilities; P V uses them rounded to
+// bf16 (kernels/flash_attention/ref.py::attention_kernel_order follows
+// that order on the CPU).
+// Times (chip_smoke.py, H100 SXM at 700 W): 0.0760 ms at the prefill's
+// shape (SDPA 0.0644 ms), 0.103 ms at qwen3-14b's D = 128 (bound 0.0434,
+// SDPA 0.096). The softmax of one tile waits for its S wgmma and the next
+// S waits for the softmax: two warpgroups overlap each other, but no
+// warpgroup overlaps its own exponentials with its products.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
@@ -193,6 +232,513 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
 
 }  // namespace
 
+// ---------------------------------------------------------------------------
+// The bfloat16 kernel on the tensor cores (D in {64, 128}).
+// ---------------------------------------------------------------------------
+namespace tc {
+
+constexpr int kBQ = 128;                 // query rows per CTA
+constexpr int kBK = 128;                 // keys per tile
+constexpr int kConsumerThreads = 256;    // two warpgroups of 64 rows each
+constexpr int kThreads = kConsumerThreads + 32;   // + the producer warp
+constexpr int kRowBytes = 128;           // one 64-column bf16 box row
+constexpr int kBoxRows = 128;            // rows of a Q, K or V box
+constexpr int kBoxBytes = kBoxRows * kRowBytes;   // 16 KB
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int D>
+struct Cfg {
+  static constexpr int kHalves = D / 64;             // 64-column boxes
+  static constexpr int kStages = D == 64 ? 3 : 2;    // K/V ring depth
+  static constexpr int kTileBytes = kHalves * kBoxBytes;   // K or V tile
+  static constexpr int kQBytes = kHalves * kBoxBytes;
+  static constexpr int kSmem = kQBytes + kStages * 2 * kTileBytes + 1024;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
+               "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               ::"r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  }
+}
+
+// One 64-column box of a [B, S, heads, D] bf16 tensor into shared memory,
+// 128-byte swizzled; completion is counted on `bar`.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int col, int head,
+                                         int row, int batch) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col),
+        "r"(head), "r"(row), "r"(batch)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a 128-byte-swizzled operand: start
+// address, leading and stride byte offsets (16-byte units), layout 1 = B128.
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
+                                         uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4)
+         | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16)
+         | ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+
+// Keeps the compiler from moving reads or writes of an accumulator across
+// the asynchronous wgmma that owns it.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float r;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
+  return r;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// D[64 x 128] (+)= A[64 x 16] * B[16 x 128]; A and B from shared memory
+// through descriptors, both K-major; scale_d = 0 zeroes D first.
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
+                                                uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{" 
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D[64 x 64] += A[64 x 16] * B[16 x 64]; A from registers (the
+// m16n8k16 A fragment of each warp's 16 rows), B from shared memory
+// MN-major (transposed).
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                                const uint32_t (&a)[4],
+                                                uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{" 
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D[64 x 128] += A[64 x 16] * B[16 x 128]; A from registers (the
+// m16n8k16 A fragment of each warp's 16 rows), B from shared memory
+// MN-major (transposed).
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                                const uint32_t (&a)[4],
+                                                uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{" 
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <int D>
+__device__ __forceinline__ void wgmma_pv(float (&o)[D / 2],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db);
+template <>
+__device__ __forceinline__ void wgmma_pv<64>(float (&o)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  wgmma_rs_n64(o, a, db);
+}
+template <>
+__device__ __forceinline__ void wgmma_pv<128>(float (&o)[64],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  wgmma_rs_n128(o, a, db);
+}
+
+// Grid (H, B, query tiles), 288 threads: warps 0-7 are two consumer
+// warpgroups of 64 query rows each, warp 8 issues the TMA copies. The
+// query tile is nq - 1 - blockIdx.z, so the CTAs with the most key tiles
+// (causal) are scheduled first. `scale_log2` is log2(e) / sqrt(D): scores
+// are kept in base-2 units and exponentiated by ex2.
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
+                const __grid_constant__ CUtensorMap tm_k,
+                const __grid_constant__ CUtensorMap tm_v,
+                __nv_bfloat16* __restrict__ out, int Sq, int Sk, int H,
+                int Kh, int causal, float scale_log2) {
+  using C = Cfg<D>;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t bars[1 + 2 * C::kStages];
+  // the swizzle repeats every 1024 bytes: align the tiles to it
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  uint8_t* base_ptr = smem_raw + (base - raw);
+  const uint32_t q_smem = base;
+  const uint32_t kv_smem = base + C::kQBytes;      // stage s: K, then V
+  const uint32_t bar_q = smem_u32(&bars[0]);
+  const uint32_t bar_full = smem_u32(&bars[1]);    // + 8 * stage
+  const uint32_t bar_empty = smem_u32(&bars[1 + C::kStages]);
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int qt = (int)gridDim.z - 1 - (int)blockIdx.z;
+  const int q0 = qt * kBQ;
+  const int kvh = h / (H / Kh);
+  const int nk = (Sk + kBK - 1) / kBK;
+  const int n_tiles = causal ? min(nk, (q0 + kBQ - 1) / kBK + 1) : nk;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < C::kStages; ++s) {
+      mbar_init(bar_full + 8 * s, 1);
+      mbar_init(bar_empty + 8 * s, kConsumerThreads);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumerThreads) {
+    // producer: Q once, then K and V tile by tile into the ring
+    if (threadIdx.x == kConsumerThreads) {
+      mbar_expect_tx(bar_q, C::kQBytes);
+#pragma unroll
+      for (int hf = 0; hf < C::kHalves; ++hf) {
+        tma_load(q_smem + hf * kBoxBytes, &tm_q, bar_q, 64 * hf, h, q0, b);
+      }
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % C::kStages;
+        if (j >= C::kStages) {
+          mbar_wait(bar_empty + 8 * s, ((j / C::kStages) + 1) & 1);
+        }
+        const uint32_t ks = kv_smem + s * 2 * C::kTileBytes;
+        const uint32_t vs = ks + C::kTileBytes;
+        mbar_expect_tx(bar_full + 8 * s, 2 * C::kTileBytes);
+#pragma unroll
+        for (int hf = 0; hf < C::kHalves; ++hf) {
+          tma_load(ks + hf * kBoxBytes, &tm_k, bar_full + 8 * s, 64 * hf,
+                   kvh, j * kBK, b);
+          tma_load(vs + hf * kBoxBytes, &tm_v, bar_full + 8 * s, 64 * hf,
+                   kvh, j * kBK, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers
+  const int wg = threadIdx.x / 128;
+  const int warp = (threadIdx.x % 128) / 32;
+  const int lane = threadIdx.x % 32;
+  const int quad = lane % 4;
+  // this thread's two query rows (and the tile's first row of this group)
+  const int wg_row0 = q0 + wg * 64;
+  const int row0 = wg_row0 + warp * 16 + lane / 4;
+  const int row1 = row0 + 8;
+
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+
+  mbar_wait(bar_q, 0);
+  for (int j = 0; j < n_tiles; ++j) {
+    const int s = j % C::kStages;
+    mbar_wait(bar_full + 8 * s, (j / C::kStages) & 1);
+    const uint32_t ks = kv_smem + s * 2 * C::kTileBytes;
+    const uint32_t vs = ks + C::kTileBytes;
+
+    // S = Q K^T: [64 rows x 128 keys], K-major operands, D / 16 steps
+    float sc[kBK / 2];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t off = (kk / 4) * kBoxBytes + (kk % 4) * 32;
+      wgmma_ss_n128(sc, desc(q_smem + off + wg * 64 * kRowBytes, 16, 1024),
+                    desc(ks + off, 16, 1024), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait0();
+    fence_regs(sc);
+
+    // scale, mask (only where a key may lie past Sk or above a row's
+    // diagonal), online softmax in base 2
+    const int key0 = j * kBK;
+    const bool edge = key0 + kBK > Sk || (causal && key0 + kBK - 1 > wg_row0);
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int i = 0; i < kBK / 2; ++i) {
+      float x = sc[i] * scale_log2;
+      if (edge) {
+        const int key = key0 + (i / 4) * 8 + 2 * quad + (i & 1);
+        const int row = (i & 2) ? row1 : row0;
+        if (key >= Sk || (causal && key > row)) x = -INFINITY;
+      }
+      sc[i] = x;
+      mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], x);
+    }
+    float m_use[2], corr[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m[r], mx[r]);
+      // a row with no visible key yet keeps p = 0 and corr = 0
+      m_use[r] = m_new == -INFINITY ? 0.f : m_new;
+      corr[r] = ex2(m[r] - m_use[r]);
+      m[r] = m_new;
+      l[r] *= corr[r];
+    }
+#pragma unroll
+    for (int i = 0; i < kBK / 2; ++i) {
+      const int r = (i >> 1) & 1;
+      sc[i] = ex2(sc[i] - m_use[r]);
+      l[r] += sc[i];
+    }
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] *= corr[(i >> 1) & 1];
+
+    // P to bf16 A fragments, 16 keys each: the accumulator layout of S is
+    // the A-fragment layout of each k16 slice of P
+    uint32_t pa[kBK / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk) {
+      pa[kk][0] = pack_bf16(sc[8 * kk + 0], sc[8 * kk + 1]);
+      pa[kk][1] = pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
+      pa[kk][2] = pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
+      pa[kk][3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
+    }
+
+    // O += P V: V [128 keys x D] is MN-major (transposed B); 16 keys a step
+    fence_regs(o);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk) {
+      wgmma_pv<D>(o, pa[kk], desc(vs + kk * 16 * kRowBytes, kBoxBytes, 1024));
+    }
+    wgmma_commit();
+    wgmma_wait0();
+    fence_regs(o);
+    mbar_arrive(bar_empty + 8 * s);
+  }
+
+  // epilogue: O / l as bf16 through this warpgroup's rows of the Q tile
+  // (swizzled as Q is), then 16-byte stores of the rows below Sq
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    l[r] = 1.f / fmaxf(l[r], 1e-30f);
+  }
+#pragma unroll
+  for (int c = 0; c < D / 8; ++c) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = wg * 64 + warp * 16 + lane / 4 + 8 * r;
+      const int chunk = (c % 8) ^ (row % 8);
+      uint8_t* p = base_ptr + (c / 8) * kBoxBytes + row * kRowBytes
+                   + chunk * 16 + quad * 4;
+      *reinterpret_cast<uint32_t*>(p) =
+          pack_bf16(o[c * 4 + 2 * r] * l[r], o[c * 4 + 2 * r + 1] * l[r]);
+    }
+  }
+  asm volatile("bar.sync %0, 128;" ::"r"(1 + wg) : "memory");
+  constexpr int kChunks = D / 8;                   // 16-byte pieces a row
+  const int t = threadIdx.x % 128;
+#pragma unroll
+  for (int i = 0; i < 64 * kChunks / 128; ++i) {
+    const int idx = t + 128 * i;
+    const int rr = idx / kChunks, c = idx % kChunks;
+    const int row = wg * 64 + rr;
+    const int grow = q0 + row;
+    const int chunk = (c % 8) ^ (row % 8);
+    const uint4 val = *reinterpret_cast<const uint4*>(
+        base_ptr + (c / 8) * kBoxBytes + row * kRowBytes + chunk * 16);
+    if (grow < Sq) {
+      *reinterpret_cast<uint4*>(
+          out + (((long long)b * Sq + grow) * H + h) * D + c * 8) = val;
+    }
+  }
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver the runtime has loaded, so that
+// the library needs no link against libcuda.
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) {
+      return nullptr;
+    }
+    fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// The tensor map of a contiguous [B, S, heads, D] bf16 tensor, read in
+// boxes of 64 columns x 1 head x `rows` rows x 1 batch, 128-byte swizzled;
+// rows past S read as zeros.
+CUresult make_map(CUtensorMap* map, const void* ptr, int B, int S, int heads,
+                  int D, int rows) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return CUDA_ERROR_NOT_FOUND;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads,
+                              (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * 2,
+                                 (cuuint64_t)heads * D * 2,
+                                 (cuuint64_t)S * heads * D * 2};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+constexpr int kEncodeError = 100000;     // + the CUresult of a failed map
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, void* out, int B,
+           int Sq, int Sk, int H, int Kh, int causal, float scale,
+           cudaStream_t stream) {
+  using C = Cfg<D>;
+  CUtensorMap mq, mk, mv;
+  CUresult res = make_map(&mq, q, B, Sq, H, D, kBoxRows);
+  if (res == CUDA_SUCCESS) res = make_map(&mk, k, B, Sk, Kh, D, kBoxRows);
+  if (res == CUDA_SUCCESS) res = make_map(&mv, v, B, Sk, Kh, D, kBoxRows);
+  if (res != CUDA_SUCCESS) return kEncodeError + (int)res;
+  static bool attr_set = false;
+  if (!attr_set) {
+    cudaError_t err = cudaFuncSetAttribute(
+        flash_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        C::kSmem);
+    if (err != cudaSuccess) return (int)err;
+    attr_set = true;
+  }
+  const dim3 grid((unsigned)H, (unsigned)B, (unsigned)((Sq + kBQ - 1) / kBQ));
+  flash_tc_kernel<D><<<grid, kThreads, C::kSmem, stream>>>(
+      mq, mk, mv, (__nv_bfloat16*)out, Sq, Sk, H, Kh, causal,
+      scale * kLog2e);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace tc
+
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and out alike). Launches on
@@ -219,7 +765,36 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
   return (int)cudaErrorInvalidValue;
 }
 
+// The bfloat16 tensor-core kernel, D in {64, 128}. q, k, v and out are
+// contiguous bf16 [B, S, heads, D], 16-byte aligned. block_q, block_k and
+// stages are the wrapper's plan (kernel.py::tc_plan) and must be the ones
+// this source is built with. Returns 0 when launched, a cudaError_t, or
+// 100000 + the CUresult of a tensor map that could not be made.
+int flash_attention_tc_launch(const void* q, const void* k, const void* v,
+                              void* out, int B, int Sq, int Sk, int H,
+                              int Kh, int D, int causal, float scale,
+                              int block_q, int block_k, int stages,
+                              int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (B <= 0 || Sq <= 0 || H <= 0) return 0;
+  if (Kh <= 0 || H % Kh != 0 || B > 65535 || H > 65535 || Sk < 0 ||
+      block_q != tc::kBQ || block_k != tc::kBK) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (D == 64 && stages == tc::Cfg<64>::kStages) {
+    return tc::launch<64>(q, k, v, out, B, Sq, Sk, H, Kh, causal, scale,
+                          (cudaStream_t)stream);
+  }
+  if (D == 128 && stages == tc::Cfg<128>::kStages) {
+    return tc::launch<128>(q, k, v, out, B, Sq, Sk, H, Kh, causal, scale,
+                           (cudaStream_t)stream);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
 const char* flash_attention_error_string(int err) {
+  if (err >= tc::kEncodeError) return "cuTensorMapEncodeTiled failed";
   return cudaGetErrorString((cudaError_t)err);
 }
 

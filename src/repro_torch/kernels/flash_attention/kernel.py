@@ -8,6 +8,11 @@ transposes nor its padding of S to a block multiple are needed: ragged S
 is bound-checked in the kernel. See the source for the design and its
 bound.
 
+Two kernels, chosen by dtype: float32 (and bfloat16 at D in {16, 32})
+goes to the CUDA-core kernel; bfloat16 at D in ``TC_HEAD_DIMS``
+goes to the tensor-core kernel (wgmma, TMA), launched with the plan of
+``tc_plan``. Both count in ``launch_count``.
+
 The library is built at first use (kernels/_build.py). ``launch_count``
 counts the launches this wrapper made; nothing else changes it.
 """
@@ -15,6 +20,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from dataclasses import dataclass
 from typing import Optional
 
 import torch
@@ -24,6 +30,11 @@ from repro_torch.kernels import _build
 NAME = "flash_attention"
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 128)
+TC_HEAD_DIMS = (64, 128)     # bfloat16 head dims of the tensor-core kernel
+TC_BLOCK_Q = 128             # query rows per CTA (two warpgroups of 64)
+TC_BLOCK_K = 128             # keys per tile of the K/V ring
+TC_STAGES = {64: 3, 128: 2}  # ring depth by head dim
+SMEM_PER_BLOCK = 232448      # bytes a block may use on sm_90
 
 launch_count = 0
 _built: Optional[_build.Built] = None
@@ -39,11 +50,38 @@ def build() -> _build.Built:
                        + [ctypes.c_float] + [ctypes.c_int] * 2
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
+        fn = built.lib.flash_attention_tc_launch
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+                       + [ctypes.c_float] + [ctypes.c_int] * 4
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
         err_str = built.lib.flash_attention_error_string
         err_str.argtypes = [ctypes.c_int]
         err_str.restype = ctypes.c_char_p
         _built = built
     return _built
+
+
+@dataclass(frozen=True)
+class TcPlan:
+    """The launch constants of the tensor-core kernel for one head dim; the
+    source is built with the same ones and refuses any others."""
+    block_q: int
+    block_k: int
+    stages: int
+    smem_bytes: int      # dynamic shared memory: Q, the ring, alignment
+
+
+def tc_plan(d: int) -> TcPlan:
+    """The tile plan of the bf16 tensor-core kernel at head dim ``d``."""
+    if d not in TC_HEAD_DIMS:
+        raise ValueError(f"the tensor-core kernel takes head_dim "
+                         f"{TC_HEAD_DIMS}, got {d}")
+    stages = TC_STAGES[d]
+    tile = TC_BLOCK_K * d * 2
+    smem = TC_BLOCK_Q * d * 2 + stages * 2 * tile + 1024
+    return TcPlan(block_q=TC_BLOCK_Q, block_k=TC_BLOCK_K, stages=stages,
+                  smem_bytes=smem)
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -82,12 +120,23 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return out
     lib = build().lib
     dev = q.device
-    err = lib.flash_attention_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        b, sq, sk, h, kh, d, int(bool(causal)), 1.0 / math.sqrt(d),
-        DTYPES[q.dtype],
-        dev.index if dev.index is not None else torch.cuda.current_device(),
-        torch.cuda.current_stream(dev).cuda_stream)
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if q.dtype == torch.bfloat16 and d in TC_HEAD_DIMS:
+        for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
+            if t.data_ptr() % 16:
+                raise ValueError(f"{name} must be 16-byte aligned for the "
+                                 "tensor-core kernel's TMA copies")
+        plan = tc_plan(d)
+        err = lib.flash_attention_tc_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            b, sq, sk, h, kh, d, int(bool(causal)), 1.0 / math.sqrt(d),
+            plan.block_q, plan.block_k, plan.stages, index, stream)
+    else:
+        err = lib.flash_attention_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            b, sq, sk, h, kh, d, int(bool(causal)), 1.0 / math.sqrt(d),
+            DTYPES[q.dtype], index, stream)
     if err != 0:
         raise RuntimeError("flash_attention launch failed: "
                            + lib.flash_attention_error_string(err).decode())

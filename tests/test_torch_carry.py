@@ -1,14 +1,14 @@
 """State carry-over: run the reference's ticks for 300 steps, carry env and
 state across with repro_torch.convert, run 200 more ticks in both packages
-on the same arrival draws, and require equal state: every integer and bool
-leaf bitwise (rounds, views, vector clocks, commit keys, ring contents are
-float32 but integer-valued and compared bitwise too), every other float
-leaf within 1e-6 relative. The float tolerance is for XLA on the CPU, which
-contracts ``buffer_tsum - buffer_tsum * frac`` (workload.form_batches) into
-one fused multiply-add where torch rounds twice; that moves the request
-arrival-time sums, and so batch_arr_mean, by an ulp, and touches no
-protocol decision. The scenario crashes the leader at 50 ms, so the 200
-carried ticks include the view timeout and the asynchronous path."""
+on the same arrival draws, and require equal state: every leaf bitwise,
+integer, bool and float alike (rounds, views, vector clocks, commit keys,
+ring contents, and the request arrival-time sums buffer_tsum and
+batch_arr_mean). XLA on the CPU contracts the reference's
+``buffer_tsum - buffer_tsum * frac`` (workload.form_batches) into one fused
+multiply-add; the port computes that remainder in float64 and rounds it
+once to float32, which gives the same bits. The scenario crashes the
+leader at 50 ms, so the 200 carried ticks include the view timeout and the
+asynchronous path."""
 import dataclasses
 
 import jax
@@ -32,8 +32,6 @@ T0 = 300
 RATE = 100_000.0
 SEED = 3
 N = 5
-# float leaves that accumulate products XLA fuses into an FMA
-FLOAT_SUMS = ("m.wl.buffer_tsum", "m.wl.batch_arr_mean")
 
 
 def _jax_run(cfg, env, rate, st, t0, t1):
@@ -102,7 +100,4 @@ def test_state_carry_over_matches_reference():
         if name == "s.coins":
             r = r.astype(np.int64)
         assert r.dtype == g.dtype, name
-        if name in FLOAT_SUMS:
-            np.testing.assert_allclose(g, r, rtol=1e-6, atol=0, err_msg=name)
-        else:
-            np.testing.assert_array_equal(r, g, err_msg=name)
+        np.testing.assert_array_equal(r, g, err_msg=name)

@@ -5,7 +5,10 @@ float32) of tests/test_kernels.py — GQA, MHA, MQA, ragged ``kv_len`` —
 plus the dense-path twin of that file's model check: the port's cache
 attention (dense and chunked, with ``kv_len``) against the port's decode
 attention on the model cache's [B, S, Kh, D] layout seen as a transposed
-view, and the kernel wrapper's checks that run without a card."""
+view, and the kernel wrapper's checks that run without a card. The same
+for the rounding order of the bf16 tensor-core kernel
+(``ref.decode_attention_kernel_order``) at G in {1, 3, 5, 8} and D in
+{64, 128}, and its split plan."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -13,7 +16,7 @@ import torch
 
 from repro.kernels.decode_attention.ops import decode_attention as jax_decode
 from repro.kernels.decode_attention.ref import decode_attention_ref as jax_ref
-from repro_torch.kernels.decode_attention import kernel, ops
+from repro_torch.kernels.decode_attention import kernel, ops, ref
 from repro_torch.models.layers import chunked_attention, dense_attention
 
 TOL = 5e-6
@@ -109,3 +112,64 @@ def test_cuda_backend_refuses_cpu_tensors_and_bad_shapes():
     q17, k1, v1, _ = map(torch.from_numpy, _inputs(1, 17, 1, 32, 16))
     with pytest.raises(ValueError, match="at most 16"):
         kernel.decode_attention_cuda(q17, k1, v1, kv_len)
+
+
+# (B, H, Kh, S, D): G = H / Kh in {1, 3, 5, 8}, D in {64, 128}
+ORDER_SHAPES = [
+    (2, 3, 3, 128, 64),      # G = 1
+    (2, 6, 2, 256, 128),     # G = 3
+    (1, 10, 2, 192, 64),     # G = 5
+    (3, 8, 1, 256, 128),     # G = 8
+]
+
+
+@pytest.mark.parametrize("b,h,kh,s,d", ORDER_SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kernel_order_matches_reference(b, h, kh, s, d, dtype):
+    """The bf16 kernel's rounding order (splits of the kernel's plan on a
+    132-SM card, which at these sizes is one split per 64-key tile at any
+    occupancy; 64-key tiles, four 16-key warp slices, P in the inputs'
+    dtype) against the reference's oracle and its Pallas kernel (interpret
+    mode, bs=64), ragged kv_len; 5e-6 in float32, 2e-2 in bfloat16."""
+    q, k, v, kv_len = _inputs(b, h, kh, s, d, seed=3)
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    tol = TOL if dtype == "float32" else 2e-2
+    jq, jk, jv = (jnp.asarray(t).astype(jdt) for t in (q, k, v))
+    tq, tk, tv = (torch.from_numpy(np.array(t.astype(jnp.float32)))
+                  .to(getattr(torch, dtype)) for t in (jq, jk, jv))
+    _, chunk = kernel.bf16_plan(s, b * kh, 132, 1)
+    got = ref.decode_attention_kernel_order(tq, tk, tv,
+                                            torch.from_numpy(kv_len),
+                                            chunk=chunk,
+                                            tile=kernel.BF16_TILE)
+    assert got.shape == (b, h, d) and got.dtype == tq.dtype
+    got = got.float().numpy()
+    jl = jnp.asarray(kv_len)
+    want = np.asarray(jax_ref(jq, jk, jv, jl).astype(jnp.float32))
+    kern = np.asarray(jax_decode(jq, jk, jv, jl, bs=64).astype(jnp.float32))
+    assert float(np.max(np.abs(got - want))) < tol
+    assert float(np.max(np.abs(got - kern))) < tol
+
+
+def test_kernel_order_zero_length_gives_zeros():
+    q, k, v, _ = map(torch.from_numpy, _inputs(2, 4, 2, 100, 16))
+    out = ref.decode_attention_kernel_order(q, k, v, torch.tensor([0, 0]),
+                                            chunk=64)
+    assert torch.equal(out, torch.zeros_like(out))
+
+
+@pytest.mark.parametrize("per_sm", [1, 2, 8, 10])
+def test_bf16_plan_fills_one_wave(per_sm):
+    """The bf16 split plan, for a card that holds ``per_sm`` CTAs per SM
+    (the occupancy calculator's count, read on the card): 64-key chunks
+    that cover the cache, and no more CTAs than the card holds at once
+    (unless one split is already more)."""
+    for s in (1, 63, 64, 1000, 2048, 8192):
+        for ctas in (1, 12, 64, 4096):
+            splits, chunk = kernel.bf16_plan(s, ctas, 132, per_sm)
+            assert chunk % kernel.BF16_TILE == 0
+            assert (splits - 1) * chunk < s <= splits * chunk
+            assert splits == 1 or ctas * splits <= per_sm * 132
+    # qwen3-14b's full cache at two CTAs per SM: 64 CTAs a split, 4 splits
+    # = one wave of 264 slots
+    assert kernel.bf16_plan(8192, 64, 132, 2) == (4, 2048)

@@ -51,9 +51,48 @@ def test_decode_kernel_matches_plain(case):
     smoke = _chip_smoke()
     _, b, h, kh, d, s, lens, dtype, tol = smoke.DECODE_CASES[case]
     before = kernel.launch_count
-    err, _ = smoke.check_decode(b, h, kh, d, s, lens, dtype)
+    err, order_err, _ = smoke.check_decode(b, h, kh, d, s, lens, dtype)
     assert err <= tol, err
+    if dtype == "bfloat16":
+        assert order_err <= smoke.DECODE_ORDER_TOL, order_err
     assert kernel.launch_count == before + 1
+
+
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("b,h,kh,s,lens", [
+    (2, 3, 1, 200, (1, 200)),         # G = 3, ragged tiles
+    (1, 40, 8, 333, (333,)),          # G = 5
+    (3, 8, 1, 1000, (64, 999, 1000)), # G = 8, many splits
+    (2, 16, 1, 70, (0, 70)),          # G = 16, kv_len 0 gives zeros
+])
+def test_decode_tensor_core_kernel_small_shapes(b, h, kh, s, lens, d):
+    """The bf16 tensor-core split kernel at every head dim, against both
+    plain versions (kv_len 0 against zeros)."""
+    _need_card()
+    from repro_torch.kernels.decode_attention import kernel, ref
+    smoke = _chip_smoke()
+    q, k, v, kv_len = smoke.decode_inputs(b, h, kh, d, s, lens, "bfloat16")
+    out = kernel.decode_attention_cuda(q, k, v, kv_len)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    per_sm = kernel.bf16_ctas_per_sm(d, 0)
+    _, chunk = kernel.bf16_plan(s, b * kh, sms, per_sm)
+    order = ref.decode_attention_kernel_order(q, k, v, kv_len, chunk=chunk)
+    want = ref.decode_attention_ref(q, k, v, kv_len)
+    live = kv_len.long() > 0
+    assert torch.equal(out[~live], torch.zeros_like(out[~live]))
+    assert (out[live].float() - want[live].float()).abs().max() <= 2e-2
+    assert (out.float() - order.float()).abs().max() <= \
+        smoke.DECODE_ORDER_TOL
+
+
+def test_decode_bf16_refuses_unaligned_rows():
+    _need_card()
+    from repro_torch.kernels.decode_attention import kernel
+    q = torch.randn(1, 4, 64, device="cuda", dtype=torch.bfloat16)
+    k = torch.randn(1, 1, 40, 68, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte"):
+        kernel.decode_attention_cuda(q, k[..., :64], k[..., :64],
+                                     torch.tensor([40], device="cuda"))
 
 
 @pytest.mark.parametrize("n", [2, 4, 8, 16])

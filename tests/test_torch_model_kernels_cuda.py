@@ -43,16 +43,37 @@ def test_rmsnorm_kernel_matches_plain(case):
     assert kernel.launch_count == before + 1
 
 
-@pytest.mark.parametrize("case", range(5))
+@pytest.mark.parametrize("case", range(8))
 def test_flash_kernel_matches_plain(case):
     _need_card()
     from repro_torch.kernels.flash_attention import kernel
     smoke = _chip_smoke()
     _, b, s, h, kh, d, causal, dtype = smoke.FLASH_CASES[case]
     before = kernel.launch_count
-    err, _ = smoke.check_flash(b, s, h, kh, d, causal, dtype)
+    err, order_err, excess, _ = smoke.check_flash(b, s, h, kh, d, causal,
+                                                  dtype)
     assert err <= smoke.FLASH_TOL[dtype], err
+    if dtype == "bfloat16":
+        assert excess <= 1, (excess, order_err)
     assert kernel.launch_count == before + 1
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("b,s,h,kh,causal", [
+    (1, 77, 4, 2, True),        # one ragged tile
+    (2, 300, 6, 3, False),      # ragged, three key tiles
+    (1, 256, 5, 1, True),       # G = 5, tiles on the diagonal only
+    (1, 129, 8, 8, True),       # MHA, one row past a tile
+])
+def test_flash_tensor_core_kernel_small_shapes(b, s, h, kh, causal, d):
+    """The bf16 tensor-core kernel at small ragged shapes, against both
+    plain versions."""
+    _need_card()
+    smoke = _chip_smoke()
+    err, order_err, excess, _ = smoke.check_flash(b, s, h, kh, d, causal,
+                                                  "bfloat16")
+    assert err <= smoke.FLASH_TOL["bfloat16"], err
+    assert excess <= 1, (excess, order_err)
 
 
 def test_auto_backend_launches_kernels_on_cuda_tensors():
