@@ -13,25 +13,36 @@ Phases, each printed as it ends; any failure exits non-zero:
               decode_attention.cu; sm_90a), all started together; build
               time and ptxas registers and spills;
   3. kernel — random tick traffic (drops, in-slot collisions, 2*D ticks,
-              D=256, B=16) through the sporades, mandator and additive ring
-              layouts, kernel and plain PyTorch version bitwise equal after
-              every tick; time per launch of both (CUDA events) beside the
-              bytes-based bound at 3.35 TB/s;
+              D=256, B=16) and adversarial traffic (D ticks from a ring
+              holding cells below -1 and additive -0.0, expanded payloads,
+              most sends masked out) through the sporades, mandator and
+              additive ring layouts: the fused commit (one launch that
+              reads the sends where they lie) and the plain PyTorch path
+              (commit_entries, pack_entries, ring_commit_ref) bit for bit
+              equal after every tick; then, in one call, the device time
+              (CUDA events) of the fused launch, of commit_entries +
+              pack_entries alone (the preparation the launch absorbs) and
+              of the plain path, beside the bytes-based bound at 3.35 TB/s,
+              and the host time per call of the fused and the plain path;
   4. main   — the Fig-6 sweep at full size through the port's entry point:
               run_sweep("mandator-sporades", SMRConfig(), 4 rates x 4
               seeds) = 16 lanes, n=5, 10 000 ticks, D=256, with the kernel
               on the path (launch counts read around this run only);
   5. profile — ticks 500-700 of that grid run twice from one state,
               untraced (wall per tick) and under torch.profiler (kernel
-              launches and device busy time per tick, the top kernels);
+              launches per tick, device busy time per tick, the top
+              kernels);
   6. whole path — 1.5 s runs of baseline and leader-crash-recover with
               the kernel and with the plain version, bitwise equal (2 s
               runs until the model phases were added; 1.5 s still enters
               the async path, as tests/test_torch_slice.py checks); the
               same points for 1 s on the card and on the CPU from one
               arrival table, bitwise equal;
-  7. model kernels — RMSNorm ([8192, 576] and [4, 576], float32 and
-              bfloat16, with and without residual) and flash attention
+  7. model kernels — RMSNorm (RMS_CASES: [8192, 576] and [4, 576],
+              float32 and bfloat16, with and without residual, float32 and
+              bfloat16 weights; d_model 8192; D = 100; x views off a
+              16-byte boundary; each with the kernel's launch plan) and
+              flash attention
               (SmolLM-135M's B=4 S=2048 H=9 Kh=3 D=64 causal, a ragged
               S=1000, qwen3-14b's D=128 H=40 Kh=8, a non-causal S=512,
               each in float32 (CUDA-core kernel) and bfloat16 (tensor-core
@@ -39,7 +50,8 @@ Phases, each printed as it ends; any failure exits non-zero:
               against the kernel's rounding order (attention_kernel_order),
               with the time per launch (CUDA events), the bound, the plain
               version's time and one PyTorch library call's
-              (F.rms_norm, F.scaled_dot_product_attention); each bf16 case
+              (F.rms_norm where w has x's dtype, in float32 and bfloat16;
+              F.scaled_dot_product_attention); each bf16 flash case
               also times the CUDA-core kernel on the same inputs, the one
               that served bf16 before the tensor-core kernel;
   8. prefill — full-width smollm-135m (random weights, seed 0) on tokens
@@ -86,8 +98,8 @@ Phases, each printed as it ends; any failure exits non-zero:
               exactly 30 flash and 61 RMSNorm launches, the logits of both
               held against a float32 forward of the same weights (the
               kernels' error at most LOGITS_BF16_RATIO times the plain
-              path's), and a profile of one forward (flash's share of
-              device time);
+              path's), and a profile of one forward (kernel launches per
+              forward, flash's share of device time);
  15. the card's line, the kernels line, then the result line.
 
 It imports nothing of JAX and nothing of the JAX package. Float32 matrix
@@ -127,21 +139,51 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def random_sends(spec, names, n, gen, ch):
+def random_sends(spec, names, n, gen, ch, expand=False, p_mask=0.5):
     """One tick of random traffic: payload uniform in [-1, 50), delays in
     [0, 2D) (clipped to [1, D-1] by the commit, so slots collide), masks
-    and drops at random."""
+    (on with probability ``p_mask``) and drops at random. With ``expand``
+    each payload is one row per sender broadcast to every receiver (stride
+    0), and the sends share one delay tensor, as the sporades tick sends
+    them."""
     import torch
+    def delays():
+        return torch.randint(0, 2 * D, (B, n, n), generator=gen,
+                             device="cuda", dtype=torch.int32)
+
     sends = []
+    shared = delays() if expand else None
     for name in names:
         w = spec[name].width
-        pay = torch.rand((B, n, n, w), generator=gen, device="cuda") * 51 - 1
-        delay = torch.randint(0, 2 * D, (B, n, n), generator=gen,
-                              device="cuda", dtype=torch.int32)
-        mask = torch.rand((B, n, n), generator=gen, device="cuda") < 0.5
+        if expand:
+            pay = (torch.rand((B, n, 1, w), generator=gen, device="cuda")
+                   * 51 - 1).expand(B, n, n, w)
+            delay = shared
+        else:
+            pay = torch.rand((B, n, n, w), generator=gen,
+                             device="cuda") * 51 - 1
+            delay = delays()
+        mask = torch.rand((B, n, n), generator=gen, device="cuda") < p_mask
         sends.append(ch.Send(name, pay, delay, mask))
     drop = torch.rand((B, n, n), generator=gen, device="cuda") < 0.2
     return sends, drop
+
+
+def adversarial_ring(spec, n, gen, ch):
+    """A ring the simulator never holds, to pin the commit's bitwise
+    semantics: every cell uniform in [-3, 2), so that masked-out sends'
+    neutral -1 raises the cells below it, and additive payload fields -0.0
+    in half of the cells, which an added 0.0 turns into +0.0."""
+    import torch
+    buf = torch.rand((B, D, n, n, spec.k), generator=gen,
+                     device="cuda") * 5 - 3
+    for c in spec.channels:
+        if c.additive:
+            off = spec.offset(c.name)
+            neg0 = torch.rand(buf[..., off:off + c.width].shape,
+                              generator=gen, device="cuda") < 0.5
+            buf[..., off:off + c.width][neg0] = -0.0
+    return {"buf": buf}
 
 
 def layouts():
@@ -181,84 +223,126 @@ def device_ms(fn, reps: int = 50, rounds: int = 7) -> float:
     return statistics.median(per_call)
 
 
-def bound_bytes(buf, slots, vals, flags, table, layout) -> int:
-    """Bytes one commit must move with these inputs: every input read once,
-    the cleared slot written once, and each ring cell a live send (flag 1)
-    targets read and written once."""
+def bound_bytes(buf, t, sends, drop, layout) -> int:
+    """Bytes the fused commit must move with these inputs: each send's
+    stored elements read once (an expanded view's storage once, a tensor
+    that several sends share once), drop and fill read once, the cleared
+    slot written once, and each ring cell a send targets read and written
+    once (a masked-out send still merges its neutral value)."""
     import torch
     Bn, Dn, n, _, K = buf.shape
-    E = slots.shape[-1]
+    seen, inputs = set(), K * 4
+    tensors = [x for s in sends for x in (s.payload, s.delay_ticks, s.mask)]
+    for x in tensors + ([drop] if drop is not None else []):
+        key = (x.data_ptr(), tuple(x.shape), x.stride())
+        if key not in seen:
+            seen.add(key)
+            inputs += x.element_size() * math.prod(
+                size for size, st in zip(x.shape, x.stride()) if st != 0)
     cells = []
     b = torch.arange(Bn, device="cuda").view(Bn, 1, 1)
     ij = torch.arange(n * n, device="cuda").view(1, n, n)
-    for e, (off, w, flag_off, _) in enumerate(layout):
-        live = flags[..., e] > 0.5
-        base = ((b * Dn + slots[..., e].long()) * n * n + ij) * K
-        fields = list(range(off, off + w)) + [flag_off]
-        for f in fields:
-            cells.append((base + f)[live])
+    for s, (off, w, flag_off, _) in zip(sends, layout):
+        slot = (t + torch.clamp(s.delay_ticks.long(), 1, Dn - 1)) % Dn
+        base = ((b * Dn + slot) * n * n + ij) * K
+        keep = slot != t % Dn
+        for f in list(range(off, off + w)) + [flag_off]:
+            cells.append((base + f)[keep])
     touched = int(torch.unique(torch.cat(cells)).numel())
-    inputs = (slots.numel() * 4 + vals.numel() * 4 + flags.numel() * 4
-              + K * 4 + table.numel() * 4)
     cleared = Bn * n * n * K * 4
     return inputs + cleared + touched * 8
+
+
+def host_ms(fn, calls: int = 200) -> float:
+    """Host wall time per call of ``fn`` over ``calls`` calls, the device
+    drained before and after: what a tick pays on the host to issue it
+    (the device work of these calls is far shorter)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / calls
 
 
 def phase_kernel(results: dict) -> None:
     import torch
     from repro_torch.core import channel as ch
-    from repro_torch.kernels.channel_ring import kernel, ops, ref
+    from repro_torch.kernels.channel_ring import kernel, ops
 
     n = 5
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     max_err = 0.0
     for name, (spec, names) in layouts().items():
-        ring_k = ch.make_ring(spec, D, n, B, torch.device("cuda"))
-        ring_r = {"buf": ring_k["buf"].clone()}
-        for t in range(2 * D):
-            sends, drop = random_sends(spec, names, n, gen, ch)
-            ring_k = ch.ring_commit(spec, ring_k, t, sends, drop=drop,
-                                    backend="cuda")
-            ring_r = ch.ring_commit(spec, ring_r, t, sends, drop=drop,
-                                    backend="ref")
-            if not torch.equal(ring_k["buf"], ring_r["buf"]):
-                diff = (ring_k["buf"] - ring_r["buf"]).abs().max().item()
-                raise AssertionError(f"{name}: kernel != plain at tick {t} "
-                                     f"(max abs diff {diff})")
-        max_err = max(max_err, (ring_k["buf"] - ring_r["buf"]).abs()
-                      .max().item())
-        log("kernel", f"{name}: K={spec.k} E={len(names)} B={B} D={D}, "
-                      f"{2 * D} ticks, kernel == plain bitwise after every "
-                      "tick")
+        for traffic in ("random", "adversarial"):
+            if traffic == "random":
+                ring_k = ch.make_ring(spec, D, n, B, torch.device("cuda"))
+            else:
+                ring_k = adversarial_ring(spec, n, gen, ch)
+            ring_r = {"buf": ring_k["buf"].clone()}
+            ticks = 2 * D if traffic == "random" else D
+            for t in range(ticks):
+                # adversarial: expanded payloads, most sends masked out
+                sends, drop = random_sends(
+                    spec, names, n, gen, ch, expand=traffic != "random"
+                    and t % 2 == 0, p_mask=0.5 if traffic == "random"
+                    else 0.2)
+                ring_k = ch.ring_commit(spec, ring_k, t, sends, drop=drop,
+                                        backend="cuda")
+                ring_r = ch.ring_commit(spec, ring_r, t, sends, drop=drop,
+                                        backend="ref")
+                if not torch.equal(ring_k["buf"].view(torch.int32),
+                                   ring_r["buf"].view(torch.int32)):
+                    diff = (ring_k["buf"] - ring_r["buf"]).abs().max().item()
+                    raise AssertionError(f"{name} {traffic}: kernel != "
+                                         f"plain at tick {t} (max abs diff "
+                                         f"{diff})")
+            log("kernel", f"{name} ({traffic}): K={spec.k} E={len(names)} "
+                          f"B={B} D={D}, {ticks} ticks, kernel == plain "
+                          "bitwise after every tick")
 
     per_layout = {}
     for name in ("sporades", "mandator"):
         spec, names = layouts()[name]
         ring = ch.make_ring(spec, D, n, B, torch.device("cuda"))
-        sends, drop = random_sends(spec, names, n, gen, ch)
+        sends, drop = random_sends(spec, names, n, gen, ch, expand=True)
         t = 3
-        entries, lay = ch.commit_entries(spec, D, t, sends, drop)
-        lay = ref.as_layout(lay)
-        slots, vals, flags = ops.pack_entries(entries)
-        table = ops.layout_table(lay, torch.device("cuda"))
+        layout = ch.send_layout(spec, tuple(names))
         fill = ch.fill_tensor(spec, torch.device("cuda"))
         buf_k, buf_r = ring["buf"].clone(), ring["buf"].clone()
-        ms = device_ms(lambda: kernel.ring_commit_cuda(
-            buf_k, t, fill, slots, vals, flags, table))
-        plain_ms = device_ms(lambda: ref.ring_commit_ref(
-            buf_r, t, fill, slots, vals, flags, lay))
+        ring_r = {"buf": buf_r}
+
+        def fused():
+            kernel.ring_commit_fused(buf_k, t, fill, sends, drop, layout)
+
+        def prep():
+            ops.pack_entries(ch.commit_entries(spec, D, t, sends, drop)[0])
+
+        def plain():
+            ch.ring_commit(spec, ring_r, t, sends, drop, backend="ref")
+
+        ms, prep_ms, plain_ms = (device_ms(f) for f in (fused, prep, plain))
+        host = {k: host_ms(f) for k, f in (("fused", fused),
+                                           ("plain", plain))}
         err = (buf_k - buf_r).abs().max().item()
         max_err = max(max_err, err)
-        nbytes = bound_bytes(buf_k, slots, vals, flags, table, lay)
+        nbytes = bound_bytes(buf_k, t, sends, drop, layout)
         bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        per_layout[name] = {"ms": ms, "plain_ms": plain_ms,
-                            "bound_ms": bound_ms, "bytes": nbytes,
+        per_layout[name] = {"ms": ms, "prep_ms": prep_ms,
+                            "plain_ms": plain_ms, "bound_ms": bound_ms,
+                            "bytes": nbytes, "host_ms": host,
                             "K": spec.k, "E": len(names)}
         log("kernel", f"{name} layout at B={B} D={D} K={spec.k} "
-                      f"E={len(names)}: kernel {ms:.6f} ms/launch, plain "
-                      f"{plain_ms:.6f} ms/call, bound {bound_ms:.6f} ms "
-                      f"({nbytes} bytes at 3.35 TB/s), max abs err {err}")
+                      f"E={len(names)}, expanded payloads: fused launch "
+                      f"{ms!r} ms; commit_entries + pack_entries alone "
+                      f"{prep_ms!r} ms; plain path (those + "
+                      f"ring_commit_ref) {plain_ms!r} ms; bound "
+                      f"{bound_ms!r} ms ({nbytes} bytes at 3.35 TB/s); "
+                      f"host per call fused {host['fused']!r} ms, plain "
+                      f"{host['plain']!r} ms; max abs err {err}")
     if max_err != 0.0:
         raise AssertionError(f"kernel differs from plain: {max_err}")
     results["per_layout"] = per_layout
@@ -370,6 +454,10 @@ def phase_profile(results: dict) -> None:
                        "busy share not measured")
         return
     per_tick_ms = dev_us / 1e3 / len(window)
+    results["profile"] = {"wall_ms_per_tick": wall_ms,
+                          "launches_per_tick": launches / len(window),
+                          "device_ms_per_tick": per_tick_ms,
+                          "busy_share": per_tick_ms / wall_ms}
     log("profile", f"{len(window)} ticks traced: {launches / len(window)!r} "
                    f"kernel launches/tick, device busy {per_tick_ms!r} "
                    f"ms/tick of {wall_ms!r} ms/tick untraced wall, same "
@@ -439,9 +527,23 @@ def _assert_same(a, b, names, what) -> None:
 # the model stack: RMSNorm and flash attention kernels, prefill, decode
 # ---------------------------------------------------------------------------
 
-# (rows, D, dtype, residual): the B=4 x S=2048 prefill and a B=4 decode step
-RMS_CASES = tuple((n, 576, dt, res) for n in (8192, 4)
-                  for dt in ("float32", "bfloat16") for res in (False, True))
+# (rows, D, dtype, residual, w dtype, x offset in elements): the B=4 x
+# S=2048 prefill and a B=4 decode step of smollm-135m, with float32 and
+# with bfloat16 weights (the bf16 model keeps its norm weights in bf16);
+# Jamba's and qwen1.5-110b's d_model 8192 (a [2, 2048] prefill and a
+# decode step); a D of 100, which no 16-byte vector of bf16 divides; and x
+# views that start 4 and 6 bytes past a 16-byte boundary
+RMS_CASES = tuple((n, 576, dt, res, "float32", 0) for n in (8192, 4)
+                  for dt in ("float32", "bfloat16") for res in (False, True)
+                  ) + tuple((n, 576, "bfloat16", res, "bfloat16", 0)
+                            for n in (8192, 4) for res in (False, True)) + (
+    (4096, 8192, "float32", False, "float32", 0),
+    (4, 8192, "bfloat16", True, "bfloat16", 0),
+    (1000, 100, "bfloat16", False, "bfloat16", 0),
+    (3, 100, "float32", True, "float32", 0),
+    (8192, 576, "float32", False, "float32", 1),
+    (4, 576, "bfloat16", True, "bfloat16", 3),
+)
 RMS_TOL = {"float32": 1e-5, "bfloat16": 3e-2}
 # (name, B, S, H, Kh, D, causal, dtype); the bfloat16 cases at D 64 and
 # 128 run the tensor-core kernel, the float32 ones the CUDA-core kernel
@@ -480,19 +582,22 @@ LOGITS_BF16_RATIO = 1.5
 DECODE_TOL = 5e-3        # decode vs prefill logits (tests/test_models.py)
 
 
-def check_rmsnorm(n, d, dtype, residual):
+def check_rmsnorm(n, d, dtype, residual, w_dtype="float32", offset=0):
     """Kernel against plain version on one case: x (and the residual)
-    ~ N(0, 1) in ``dtype``, w = 1 + N(0, 0.1^2) in float32 as the model
-    keeps its norm weights. Returns (max abs err, inputs)."""
+    ~ N(0, 1) in ``dtype``, x a view ``offset`` elements into its storage,
+    w = 1 + N(0, 0.1^2) in ``w_dtype``, as the model keeps its norm
+    weights. Returns (max abs err, inputs)."""
     import torch
     from repro_torch.kernels.rmsnorm import kernel, ref
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     dt = getattr(torch, dtype)
-    x = torch.randn((n, d), generator=gen, device="cuda").to(dt)
+    x = torch.randn((n * d + offset,), generator=gen, device="cuda").to(dt)
+    x = x[offset:].view(n, d)
     r = (torch.randn((n, d), generator=gen, device="cuda").to(dt)
          if residual else None)
-    w = 1 + 0.1 * torch.randn((d,), generator=gen, device="cuda")
+    w = (1 + 0.1 * torch.randn((d,), generator=gen, device="cuda")).to(
+        getattr(torch, w_dtype))
     out = kernel.rmsnorm_cuda(x, w, eps=1e-5, residual=r)
     want = ref.rmsnorm_ref(x, w, eps=1e-5, residual=r)
     torch.cuda.synchronize()
@@ -587,8 +692,20 @@ def cycling(fn, first: tuple, nbytes: int):
     memory as the bound assumes, not from L2. Inputs under 1 MB are not
     copied: a decode step finds them in L2 as well."""
     import itertools
+
+    import torch
+
+    def clone(t):
+        """A copy at the same storage offset (so an unaligned view stays
+        unaligned)."""
+        if t is None or t.storage_offset() == 0:
+            return None if t is None else t.clone()
+        base = torch.empty(t.storage_offset() + t.numel(), dtype=t.dtype,
+                           device=t.device)
+        return base[t.storage_offset():].view(t.shape).copy_(t)
+
     copies = 1 if nbytes < 1e6 else min(8, math.ceil(3 * L2_BYTES / nbytes))
-    sets = [first] + [tuple(None if t is None else t.clone() for t in first)
+    sets = [first] + [tuple(clone(t) for t in first)
                       for _ in range(copies - 1)]
     it = itertools.cycle(sets)
     return lambda: fn(*next(it))
@@ -603,32 +720,38 @@ def phase_model_kernels(results: dict) -> None:
     from repro_torch.kernels.rmsnorm import ref as rref
 
     cases = []
-    for n, d, dtype, residual in RMS_CASES:
-        err, (x, w, r) = check_rmsnorm(n, d, dtype, residual)
+    for n, d, dtype, residual, w_dtype, offset in RMS_CASES:
+        what = (f"rmsnorm [{n}, {d}] {dtype} residual={residual} w "
+                f"{w_dtype}" + (f" x offset {offset}" if offset else ""))
+        err, (x, w, r) = check_rmsnorm(n, d, dtype, residual, w_dtype,
+                                       offset)
         if not err <= RMS_TOL[dtype]:
-            raise AssertionError(f"rmsnorm [{n}, {d}] {dtype} residual="
-                                 f"{residual}: kernel vs plain {err} > "
+            raise AssertionError(f"{what}: kernel vs plain {err} > "
                                  f"{RMS_TOL[dtype]}")
         es = x.element_size()
-        nbytes = n * d * es * (3 if residual else 2) + d * 4
+        nbytes = n * d * es * (3 if residual else 2) + d * w.element_size()
         ms = device_ms(cycling(lambda x, w, r: rk.rmsnorm_cuda(
             x, w, residual=r), (x, w, r), nbytes))
         plain_ms = device_ms(cycling(lambda x, w, r: rref.rmsnorm_ref(
             x, w, residual=r), (x, w, r), nbytes))
         library_ms = None
-        if dtype == "float32" and not residual:
+        if not residual and w.dtype == x.dtype:
             library_ms = device_ms(cycling(lambda x, w, _: F.rms_norm(
                 x, (d,), w, 1e-5), (x, w, r), nbytes))
         bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        vb = rk.vector_bytes(d, *(t for t in (x, x, r, w) if t is not None))
+        plan = rk.plan(n, d, x.dtype, vb)._asdict()
         cases.append({"shape": [n, d], "dtype": dtype, "residual": residual,
-                      "max_abs_err": err, "tol": RMS_TOL[dtype], "ms": ms,
+                      "w_dtype": w_dtype, "x_offset": offset,
+                      "plan": plan, "max_abs_err": err,
+                      "tol": RMS_TOL[dtype], "ms": ms,
                       "plain_ms": plain_ms, "bound_ms": bound_ms,
                       "bytes": nbytes, "library_ms": library_ms})
-        log("model kernels", f"rmsnorm [{n}, {d}] {dtype} residual="
-                             f"{residual}: max abs err {err!r} (tol "
-                             f"{RMS_TOL[dtype]}), kernel {ms!r} ms, plain "
-                             f"{plain_ms!r} ms, F.rms_norm {library_ms!r} "
-                             f"ms, bound {bound_ms!r} ms ({nbytes} bytes)")
+        log("model kernels", f"{what}: plan {plan}, max abs err {err!r} "
+                             f"(tol {RMS_TOL[dtype]}), kernel {ms!r} ms, "
+                             f"plain {plain_ms!r} ms, F.rms_norm "
+                             f"{library_ms!r} ms, bound {bound_ms!r} ms "
+                             f"({nbytes} bytes)")
     results["rmsnorm"] = cases
 
     cases = []
@@ -871,6 +994,7 @@ def phase_prefill_bf16(results: dict) -> None:
         "logits_err_vs_f32": errs, "launches": counts,
         "profiled_device_ms": dev_ms, "flash_device_ms": flash_ms,
         "flash_share": flash_ms / dev_ms if dev_ms > 0 else None,
+        "launches_per_forward": sum(e.count for e in kernels),
         "profiled_kernel_launches": seen}
     if dev_ms <= 0:
         log("prefill bf16", "torch.profiler recorded no device time: "
@@ -1394,7 +1518,9 @@ def kernel_entries(results: dict) -> list:
         "bound_ms": sp["bound_ms"],
         "bound_by": "bytes",
         "library_ms": None,
+        "prep_ms": sp["prep_ms"],
         "per_layout": results["per_layout"],
+        "tick_profile": results.get("profile"),
     }, {
         "name": "rmsnorm",
         "route": "cuda",
@@ -1408,6 +1534,8 @@ def kernel_entries(results: dict) -> list:
         "bound_by": "bytes",
         "library_ms": rms["library_ms"],
         "launches_decode": results["decode"]["launches"]["rmsnorm"],
+        "launches_bf16_prefill":
+            results["prefill_bf16"]["launches"]["rmsnorm"],
         "cases": results["rmsnorm"],
     }, {
         "name": "flash_attention",

@@ -11,8 +11,10 @@ counter channels by add); the receive side folds arrivals into
 
 A whole tick's traffic is one fused commit (``ring_commit``): the slot
 clear, one scatter-max and one scatter-add, through
-``repro_torch.kernels.channel_ring`` — the CUDA kernel on the card, the
-plain PyTorch version on the CPU. The port updates the ring in place.
+``repro_torch.kernels.channel_ring``. On the card one CUDA launch reads
+the tick's sends where they lie; the plain PyTorch version (the CPU path)
+first merges each send with its mask (``commit_entries``) and packs the
+entries. The port updates the ring in place.
 """
 from __future__ import annotations
 
@@ -23,6 +25,7 @@ from typing import Dict, List, NamedTuple, Tuple
 import numpy as np
 import torch
 
+from repro_torch.kernels.channel_ring import kernel as ring_kernel
 from repro_torch.kernels.channel_ring import ops as ring_ops
 
 NEG = -1.0  # "absent" payload fill
@@ -143,6 +146,13 @@ def ring_deliver(spec: RingSpec, ring: Dict[str, torch.Tensor], t: int
     return out
 
 
+@functools.lru_cache(maxsize=64)
+def send_layout(spec: RingSpec, names: Tuple[str, ...]
+                ) -> Tuple[Tuple[int, int, int, bool], ...]:
+    """Each send's ``spec.layout``, for a tick's static send list."""
+    return tuple(spec.layout(n) for n in names)
+
+
 def commit_entries(spec: RingSpec, dmax: int, t: int, sends: List[Send],
                    drop: torch.Tensor | None = None):
     """A tick's sends as the commit's entries and static layout: per send,
@@ -174,9 +184,11 @@ def ring_commit(spec: RingSpec, ring: Dict[str, torch.Tensor], t: int,
     """Fused commit of one tick, in place: clear the delivered slot
     ``t % D`` and merge every buffered send. ``drop`` is the tick's
     scenario link-cut mask, applied to every send (silent omission)."""
-    entries, layout = commit_entries(spec, ring["buf"].shape[1], t, sends,
-                                     drop)
-    buf = ring_ops.ring_commit(ring["buf"], t,
-                               fill_tensor(spec, ring["buf"].device),
-                               entries, layout, backend=backend)
-    return {"buf": buf}
+    buf = ring["buf"]
+    fill = fill_tensor(spec, buf.device)
+    if ring_ops.resolve_backend(backend, buf.device) == "cuda":
+        layout = send_layout(spec, tuple(s.name for s in sends))
+        ring_kernel.ring_commit_fused(buf, t, fill, sends, drop, layout)
+        return {"buf": buf}
+    entries, layout = commit_entries(spec, buf.shape[1], t, sends, drop)
+    return {"buf": ring_ops.ring_commit(buf, t, fill, entries, layout)}

@@ -223,7 +223,9 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // One block of D threads per (b, h): the splits' partial sums, rescaled to
-// their common max, added and divided. No valid key at all gives zeros.
+// their common max, added and divided. No valid key at all (kv_len[b] = 0)
+// gives NaN, a softmax over nothing, as the plain version and the
+// reference's oracle do.
 template <typename T>
 __global__ void decode_combine_kernel(const float* __restrict__ part_acc,
                                       const float* __restrict__ part_m,
@@ -236,13 +238,15 @@ __global__ void decode_combine_kernel(const float* __restrict__ part_acc,
   const float* pl = part_l + bh * splits;
   float m = -INFINITY;
   for (int s = 0; s < splits; ++s) m = fmaxf(m, pm[s]);
+  if (m == -INFINITY) {
+    out[bh * D + c] = from_f32<T>(__int_as_float(0x7fffffff));   // NaN
+    return;
+  }
   float l = 0.f, a = 0.f;
-  if (m != -INFINITY) {
-    for (int s = 0; s < splits; ++s) {
-      const float w = expf(pm[s] - m);           // 0 for an empty split
-      l = fmaf(pl[s], w, l);
-      a = fmaf(part_acc[(bh * splits + s) * D + c], w, a);
-    }
+  for (int s = 0; s < splits; ++s) {
+    const float w = expf(pm[s] - m);             // 0 for an empty split
+    l = fmaf(pl[s], w, l);
+    a = fmaf(part_acc[(bh * splits + s) * D + c], w, a);
   }
   out[bh * D + c] = from_f32<T>(a / fmaxf(l, 1e-30f));
 }

@@ -1,22 +1,26 @@
-"""Dispatch wrapper for the fused channel-ring commit.
+"""Dispatch helpers for the channel-ring commit.
 
-Called from ``core/channel.ring_commit`` once per protocol per tick. It
-packs the tick's send entries into the contiguous tensors the kernel takes
-and picks the backend from where the ring lives, by the rule of
-``kernels/_dispatch.py``: ``"auto"`` is the CUDA kernel (kernel.py) for a
-CUDA ring and the plain PyTorch version (ref.py) for a CPU ring; ``"ref"``
-is the plain version anywhere; ``"cuda"`` is the kernel and raises for a
-CPU ring. There is no fallback from the kernel to the plain version.
+``core/channel.ring_commit`` calls one of two routes once per protocol per
+tick, picked from where the ring lives by the rule of
+``kernels/_dispatch.py`` (``resolve_backend``): ``"auto"`` is the CUDA
+kernel for a CUDA ring and the plain PyTorch version for a CPU ring;
+``"ref"`` is the plain version anywhere; ``"cuda"`` is the kernel and
+raises for a CPU ring. There is no fallback from the kernel to the plain
+version.
+
+  * the kernel (``kernel.ring_commit_fused``) takes the tick's sends as
+    they lie;
+  * the plain version (``ring_commit``) takes them as entries already
+    merged with their masks (``core/channel.commit_entries``), packs them
+    into contiguous tensors (``pack_entries``) and runs ``ref.py``.
 """
 from __future__ import annotations
 
-import functools
 from typing import Sequence, Tuple
 
 import torch
 
 from repro_torch.kernels import _dispatch
-from repro_torch.kernels.channel_ring import kernel
 from repro_torch.kernels.channel_ring.ref import (EntryLayout, as_layout,
                                                   ring_commit_ref)
 
@@ -32,19 +36,6 @@ def resolve_backend(backend: str, device: torch.device) -> str:
     return _dispatch.resolve_backend(backend, device, "channel")
 
 
-@functools.lru_cache(maxsize=64)
-def layout_table(layout: Tuple[EntryLayout, ...], device: torch.device
-                 ) -> torch.Tensor:
-    """[E, 5] int32 per-entry (off, w, flag_off, additive, value offset),
-    built once per layout and device so a tick copies nothing from the
-    host."""
-    rows, voff = [], 0
-    for off, w, flag_off, additive in layout:
-        rows.append([off, w, flag_off, int(additive), voff])
-        voff += w
-    return torch.tensor(rows, dtype=torch.int32, device=device)
-
-
 def pack_entries(entries: Sequence[Entry]
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Stack a tick's entries into slots [B,n,n,E] int32, vals
@@ -56,14 +47,11 @@ def pack_entries(entries: Sequence[Entry]
 
 
 def ring_commit(buf: torch.Tensor, t: int, fill: torch.Tensor,
-                entries: Sequence[Entry], layout: Sequence[EntryLayout],
-                backend: str = "auto") -> torch.Tensor:
-    """Fused commit of one tick's sends into ``buf`` [B, D, n, n, K], in
-    place: slot-clear of the delivered slot ``t % D`` + one scatter-max +
-    one scatter-add (see ref.py). Returns ``buf``."""
-    layout = as_layout(layout)
+                entries: Sequence[Entry],
+                layout: Sequence[EntryLayout]) -> torch.Tensor:
+    """The plain version of one tick's commit into ``buf`` [B, D, n, n, K],
+    in place: slot-clear of the delivered slot ``t % D`` + one scatter-max
+    + one scatter-add (see ref.py). Returns ``buf``."""
     slots, vals, flags = pack_entries(entries)
-    if resolve_backend(backend, buf.device) == "ref":
-        return ring_commit_ref(buf, t, fill, slots, vals, flags, layout)
-    return kernel.ring_commit_cuda(buf, t, fill, slots, vals, flags,
-                                   layout_table(layout, buf.device))
+    return ring_commit_ref(buf, t, fill, slots, vals, flags,
+                           as_layout(layout))

@@ -112,9 +112,9 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q: [B, H, D] contiguous; k, v: [B, Kh, S, D] with unit stride on D
     (any strides on B, Kh, S); one dtype (float32 or bfloat16) on one CUDA
     device; kv_len: [B] integers (positions >= kv_len[b] are masked; a
-    kv_len[b] of 0 gives zeros). H % Kh == 0, H / Kh <= MAX_GROUP, D in
-    HEAD_DIMS. Returns a new [B, H, D] tensor of q's dtype, launched on the
-    current stream."""
+    kv_len[b] of 0 gives NaN, as the plain version does). H % Kh == 0,
+    H / Kh <= MAX_GROUP, D in HEAD_DIMS. Returns a new [B, H, D] tensor of
+    q's dtype, launched on the current stream."""
     global launch_count
     if q.dim() != 3 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"q must be [B, H, D] and k, v [B, Kh, S, D], got "

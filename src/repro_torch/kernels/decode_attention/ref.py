@@ -8,8 +8,9 @@ split, warp slice and tile, P in bf16): the card's second, tighter
 yardstick for that kernel.
 
 With ``kv_len[b] = 0`` every score is masked and the softmax gives NaN, as
-the reference's oracle does (the reference's Pallas kernel gives the mean
-of V there, the port's kernel zeros; ROADMAP Queue C).
+the reference's oracle does; the port's kernels and
+``decode_attention_kernel_order`` give NaN there too (the reference's
+Pallas kernel gives the mean of V).
 """
 from __future__ import annotations
 
@@ -48,15 +49,15 @@ def decode_attention_kernel_order(q: torch.Tensor, k: torch.Tensor,
     probabilities rounded to v's dtype before P V, float32 accumulation.
     The slices are combined as the kernel's CTA combines its warps, the
     splits as its combine kernel does, and acc / max(l, 1e-30) is cast
-    once. Positions >= kv_len[b] are masked; a kv_len of 0 gives zeros,
-    as the kernel does. In float32 the rounding of P is none and this is
-    ``decode_attention_ref`` up to the order of the sums (for kv_len >=
-    1)."""
+    once. Positions >= kv_len[b] are masked; a row with no valid key
+    (kv_len[b] = 0, or S = 0) gives NaN, as the kernel does. In float32
+    the rounding of P is none and this is ``decode_attention_ref`` up to
+    the order of the sums (for kv_len >= 1)."""
     b, h, d = q.shape
     kh, s = k.shape[1], k.shape[2]
     g = h // kh
     if s == 0:
-        return torch.zeros_like(q)
+        return torch.full_like(q, float("nan"))
     chunk = s if chunk is None else chunk
     warps = 4
     per = tile // warps
@@ -101,4 +102,5 @@ def decode_attention_kernel_order(q: torch.Tensor, k: torch.Tensor,
     m, l, acc = combine(m, l, acc, 4)          # the warps of a CTA
     m, l, acc = combine(m, l, acc, 3)          # the splits
     out = acc / torch.clamp(l, min=1e-30)[..., None]
+    out = torch.where((m == neg)[..., None], float("nan"), out)
     return out.reshape(b, h, d).to(q.dtype)

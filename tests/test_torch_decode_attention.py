@@ -152,10 +152,41 @@ def test_kernel_order_matches_reference(b, h, kh, s, d, dtype):
 
 
 def test_kernel_order_zero_length_gives_zeros():
-    q, k, v, _ = map(torch.from_numpy, _inputs(2, 4, 2, 100, 16))
-    out = ref.decode_attention_kernel_order(q, k, v, torch.tensor([0, 0]),
-                                            chunk=64)
-    assert torch.equal(out, torch.zeros_like(out))
+    """A row with kv_len 0 has no key to attend to: the kernel-order twin
+    gives NaN there, as the oracle's softmax over nothing does, and finite
+    values, equal to the oracle's within 5e-6, in the other rows. (The
+    name is kept from when the twin, like the kernel, gave zeros.)"""
+    q, k, v, _ = map(torch.from_numpy, _inputs(3, 4, 2, 100, 16))
+    kv_len = torch.tensor([0, 37, 0])
+    out = ref.decode_attention_kernel_order(q, k, v, kv_len, chunk=64)
+    dead = (kv_len == 0)[:, None, None].expand_as(out)
+    assert torch.isnan(out[dead]).all()
+    assert torch.isfinite(out[~dead]).all()
+    want = ref.decode_attention_ref(q, k, v, kv_len)
+    assert torch.equal(torch.isnan(out), torch.isnan(want))
+    assert (out[~dead] - want[~dead]).abs().max() < 5e-6
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_zero_length_rows_are_nan_as_in_the_oracle(dtype):
+    """kv_len = 0: the port's plain version and the reference's oracle
+    both give NaN, in exactly the same positions (the rows whose kv_len is
+    0), and agree elsewhere."""
+    q, k, v, _ = _inputs(4, 6, 2, 96, 32, seed=5)
+    kv_len = np.array([0, 96, 0, 11], np.int32)
+    jdt = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}[dtype]
+    jq, jk, jv = (jnp.asarray(t).astype(jdt) for t in (q, k, v))
+    want = np.asarray(jax_ref(jq, jk, jv, jnp.asarray(kv_len))
+                      .astype(jnp.float32))
+    tq, tk, tv = (torch.from_numpy(np.array(t.astype(jnp.float32)))
+                  .to(getattr(torch, dtype)) for t in (jq, jk, jv))
+    got = ops.decode_attention(tq, tk, tv,
+                               torch.from_numpy(kv_len)).float().numpy()
+    dead = np.broadcast_to((kv_len == 0)[:, None, None], got.shape)
+    np.testing.assert_array_equal(np.isnan(got), dead)
+    np.testing.assert_array_equal(np.isnan(want), dead)
+    tol = TOL if dtype == "float32" else 2e-2
+    assert float(np.max(np.abs(got[~dead] - want[~dead]))) < tol
 
 
 @pytest.mark.parametrize("per_sm", [1, 2, 8, 10])

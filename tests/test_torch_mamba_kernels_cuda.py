@@ -63,11 +63,11 @@ def test_decode_kernel_matches_plain(case):
     (2, 3, 1, 200, (1, 200)),         # G = 3, ragged tiles
     (1, 40, 8, 333, (333,)),          # G = 5
     (3, 8, 1, 1000, (64, 999, 1000)), # G = 8, many splits
-    (2, 16, 1, 70, (0, 70)),          # G = 16, kv_len 0 gives zeros
+    (2, 16, 1, 70, (0, 70)),          # G = 16, kv_len 0 gives NaN
 ])
 def test_decode_tensor_core_kernel_small_shapes(b, h, kh, s, lens, d):
     """The bf16 tensor-core split kernel at every head dim, against both
-    plain versions (kv_len 0 against zeros)."""
+    plain versions (kv_len 0: NaN in exactly those rows, as both give)."""
     _need_card()
     from repro_torch.kernels.decode_attention import kernel, ref
     smoke = _chip_smoke()
@@ -79,9 +79,12 @@ def test_decode_tensor_core_kernel_small_shapes(b, h, kh, s, lens, d):
     order = ref.decode_attention_kernel_order(q, k, v, kv_len, chunk=chunk)
     want = ref.decode_attention_ref(q, k, v, kv_len)
     live = kv_len.long() > 0
-    assert torch.equal(out[~live], torch.zeros_like(out[~live]))
+    assert torch.isnan(out[~live]).all()
+    assert torch.isfinite(out[live]).all()
+    assert torch.equal(torch.isnan(out), torch.isnan(want))
+    assert torch.equal(torch.isnan(out), torch.isnan(order))
     assert (out[live].float() - want[live].float()).abs().max() <= 2e-2
-    assert (out.float() - order.float()).abs().max() <= \
+    assert (out[live].float() - order[live].float()).abs().max() <= \
         smoke.DECODE_ORDER_TOL
 
 
@@ -126,5 +129,11 @@ def test_auto_backend_and_cache_layout():
     assert dk.launch_count == before + 1
     want = dref.decode_attention_ref(q, k, v, kv_len)
     assert (out - want).abs().max().item() <= 5e-6
+    lens = torch.tensor([0, 100], dtype=kv_len.dtype, device="cuda")
+    part = dops.decode_attention(q, k, v, lens)
+    want = dref.decode_attention_ref(q, k, v, lens)
+    assert torch.isnan(part[0]).all() and torch.isfinite(part[1]).all()
+    assert torch.equal(torch.isnan(part), torch.isnan(want))
+    assert (part[1] - want[1]).abs().max().item() <= 5e-6
     zero = dops.decode_attention(q, k, v, torch.zeros_like(kv_len))
-    assert torch.equal(zero, torch.zeros_like(zero))
+    assert torch.isnan(zero).all()

@@ -26,19 +26,22 @@ def _chip_smoke():
     return mod
 
 
+_N_RMS = len(_chip_smoke().RMS_CASES)
+
+
 def _need_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
 
 
-@pytest.mark.parametrize("case", range(8))
+@pytest.mark.parametrize("case", range(_N_RMS))
 def test_rmsnorm_kernel_matches_plain(case):
     _need_card()
     from repro_torch.kernels.rmsnorm import kernel
     smoke = _chip_smoke()
-    n, d, dtype, residual = smoke.RMS_CASES[case]
+    dtype = smoke.RMS_CASES[case][2]
     before = kernel.launch_count
-    err, _ = smoke.check_rmsnorm(n, d, dtype, residual)
+    err, _ = smoke.check_rmsnorm(*smoke.RMS_CASES[case])
     assert err <= smoke.RMS_TOL[dtype], err
     assert kernel.launch_count == before + 1
 
@@ -74,6 +77,19 @@ def test_flash_tensor_core_kernel_small_shapes(b, s, h, kh, causal, d):
                                                   "bfloat16")
     assert err <= smoke.FLASH_TOL["bfloat16"], err
     assert excess <= 1, (excess, order_err)
+
+
+@pytest.mark.parametrize("n,d", [(1, 32), (5, 1000), (2000, 576),
+                                 (3, 40000), (1100, 99)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rmsnorm_plans_and_ragged_rows(n, d, dtype):
+    """Every shape of plan: a warp per row, a CTA per row, a row looped
+    over (40000 is past the registers), and D that no vector divides."""
+    _need_card()
+    smoke = _chip_smoke()
+    for residual in (False, True):
+        err, _ = smoke.check_rmsnorm(n, d, dtype, residual, dtype)
+        assert err <= smoke.RMS_TOL[dtype], (residual, err)
 
 
 def test_auto_backend_launches_kernels_on_cuda_tensors():
