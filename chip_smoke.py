@@ -37,7 +37,8 @@ Phases, each printed as it ends; any failure exits non-zero:
               runs until the model phases were added; 1.5 s still enters
               the async path, as tests/test_torch_slice.py checks); the
               same points for 1 s on the card and on the CPU from one
-              arrival table, bitwise equal;
+              arrival table, bitwise equal: the integer traces and every
+              float metric (SAME_LEAVES);
   7. model kernels — RMSNorm (RMS_CASES: [8192, 576] and [4, 576],
               float32 and bfloat16, with and without residual, float32 and
               bfloat16 weights; d_model 8192; D = 100; x views off a
@@ -45,20 +46,24 @@ Phases, each printed as it ends; any failure exits non-zero:
               flash attention
               (SmolLM-135M's B=4 S=2048 H=9 Kh=3 D=64 causal, a ragged
               S=1000, qwen3-14b's D=128 H=40 Kh=8, a non-causal S=512,
-              each in float32 (CUDA-core kernel) and bfloat16 (tensor-core
-              kernel)) against their plain versions, the bf16 cases also
-              against the kernel's rounding order (attention_kernel_order),
-              with the time per launch (CUDA events), the bound, the plain
-              version's time and one PyTorch library call's
-              (F.rms_norm where w has x's dtype, in float32 and bfloat16;
-              F.scaled_dot_product_attention); each bf16 flash case
-              also times the CUDA-core kernel on the same inputs, the one
-              that served bf16 before the tensor-core kernel;
+              each in float32 (the 3xTF32 tensor-core kernel) and bfloat16
+              (the bf16 tensor-core kernel); each case checks which kernel
+              its launch took) against their plain versions, the bf16
+              cases also against the kernel's rounding order
+              (attention_kernel_order) and the float32 ones against the
+              3xTF32 kernel's (attention_tf32x3_order), element by
+              element, with the time per launch (CUDA
+              events), the bound, the plain version's time and one PyTorch
+              library call's (F.rms_norm where w has x's dtype, in float32
+              and bfloat16; F.scaled_dot_product_attention); each flash
+              case also times the CUDA-core kernel on the same inputs, the
+              one that served it before the tensor-core kernels;
   8. prefill — full-width smollm-135m (random weights, seed 0) on tokens
               [4, 2048]: forward_train with the kernels (attention_impl=
               "pallas", use_pallas_norm) and with their plain versions;
               logits' max difference, wall time, tokens/s and the launches
-              of each kernel in the kernel run;
+              of each kernel in the kernel run (all 30 flash launches on
+              the 3xTF32 kernel);
   9. decode — the same model and prompt token by token through
               forward_decode for the first 256 positions: logits within
               5e-3 of the prefill's at every position, ms per step, and 16
@@ -70,7 +75,10 @@ Phases, each printed as it ends; any failure exits non-zero:
               16], the reference test's [2, 64, 32, 8] (float32) and the
               mixer's shape with x, dt, B, C in bfloat16: max abs error,
               time per launch (CUDA events, inputs cycled past the L2),
-              the bound and the plain version's time;
+              the bound (bytes, or the pipes' floor) and the plain
+              version's time; at the mixer's shape also the time of the
+              kernel's copies in and out alone (ssm_scan_loads_cuda,
+              uncounted);
  12. decode kernel — flash-decoding through its entry point
               (kernels/decode_attention/ops.py) at SmolLM-135M's decode
               (B=4 H=9 Kh=3 D=64 S=2048, kv_len 256/1000/1777/2048), on the
@@ -121,7 +129,8 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory (data sheet)
 L2_BYTES = 50e6                    # H100 L2 cache (data sheet)
 # H100 SXM dense peaks (data sheet): float32 without tensor cores, bf16
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+# and TF32 on the tensor cores
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "tf32": 495e12}
 B, D = 16, 256                     # the Fig-6 grid's lanes and ring slots
 FIG6_RATES = (50_000, 150_000, 300_000, 450_000)
 FIG6_SEEDS = (0, 1, 2, 3)
@@ -493,8 +502,8 @@ def phase_whole_path() -> None:
     if not runs["cuda"][1]["async_frac"] > 0:
         raise AssertionError("leader-crash-recover never entered the async "
                              "path")
-    log("whole", "kernel vs plain: cvc_all, commit_key, views, async_frac "
-                 "bitwise equal on both scenarios")
+    log("whole", f"kernel vs plain: {', '.join(SAME_LEAVES)} bitwise equal "
+                 "on both scenarios")
 
     # the card against the CPU path (held to the JAX reference by the
     # repo's tests) on one arrival table
@@ -508,19 +517,31 @@ def phase_whole_path() -> None:
     cpu = run_sweep("mandator-sporades", cfg, spec, device="cpu",
                     draws=draws)
     _assert_same(gpu, cpu, names, "cuda vs cpu")
-    log("whole", "card vs CPU (1 s, one arrival table): cvc_all, "
-                 "commit_key, views, async_frac bitwise equal")
+    log("whole", f"card vs CPU (1 s, one arrival table): "
+                 f"{', '.join(SAME_LEAVES)} bitwise equal")
+
+
+# every leaf of a result row that phase 6 holds bit for bit: the integer
+# traces and, since the metric sums are exact (core/harness.py
+# _batch_metrics), the float metrics too
+SAME_LEAVES = ("cvc_all", "commit_key", "views", "async_frac", "throughput",
+               "median_ms", "p99_ms", "committed", "timeline",
+               "origin_median_ms", "origin_p99_ms", "origin_timeline",
+               "origin_lat_ms_timeline")
 
 
 def _assert_same(a, b, names, what) -> None:
+    """Every leaf of SAME_LEAVES equal bit for bit (floats compared as
+    their float32 bits, so NaN equals NaN and -0.0 differs from 0.0)."""
     import numpy as np
     for x, y, name in zip(a, b, names):
-        for k in ("cvc_all", "commit_key"):
-            if not np.array_equal(x[k], y[k]):
-                raise AssertionError(f"{what}: {name} {k} differs")
-        for k in ("views", "async_frac"):
-            if x[k] != y[k]:
-                raise AssertionError(f"{what}: {name} {k} {x[k]} != {y[k]}")
+        for k in SAME_LEAVES:
+            u, v = np.asarray(x[k]), np.asarray(y[k])
+            if u.dtype.kind == "f":
+                u, v = (t.astype(np.float32).view(np.uint32) for t in (u, v))
+            if u.shape != v.shape or not np.array_equal(u, v):
+                raise AssertionError(f"{what}: {name} {k} differs: "
+                                     f"{x[k]!r} != {y[k]!r}")
 
 
 # ---------------------------------------------------------------------------
@@ -545,8 +566,9 @@ RMS_CASES = tuple((n, 576, dt, res, "float32", 0) for n in (8192, 4)
     (4, 576, "bfloat16", True, "bfloat16", 3),
 )
 RMS_TOL = {"float32": 1e-5, "bfloat16": 3e-2}
-# (name, B, S, H, Kh, D, causal, dtype); the bfloat16 cases at D 64 and
-# 128 run the tensor-core kernel, the float32 ones the CUDA-core kernel
+# (name, B, S, H, Kh, D, causal, dtype); at D 64 and 128 the bfloat16
+# cases run the bf16 tensor-core kernel, the float32 ones the 3xTF32
+# tensor-core kernel
 FLASH_CASES = (
     ("smollm-prefill", 4, 2048, 9, 3, 64, True, "float32"),
     ("smollm-prefill-bf16", 4, 2048, 9, 3, 64, True, "bfloat16"),
@@ -571,6 +593,15 @@ FLASH_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 # or a stale ring stage moves the output by ~0.01.
 FLASH_ORDER_ULPS = 2
 FLASH_ORDER_P_FLIP = 2.0 ** -8
+# float32 tensor-core kernel against attention_tf32x3_order (its TF32
+# halves, each product step rounded as the tensor cores round into a
+# per-block temporary, its key tile), element by element, max abs. What
+# the twin leaves out is the kernel's ex2.approx (2 ulp a probability) and
+# its order of summing l: about 4x the largest gap read on an H100 (7.2e-7
+# at qwen3-14b's D = 128). A kernel that fed its products straight into S
+# and O, whose truncation then drifts, was 5e-6 off the oracle, where this
+# twin is 5e-7 off it.
+TF32X3_ORDER_TOL = 3e-6
 PREFILL_B, PREFILL_S, DECODE_STEPS = 4, 2048, 256
 LOGITS_TOL = 1e-3        # prefill logits, kernels vs plain, float32
 # bf16 prefill: the kernels' logits and the plain versions' are each held
@@ -623,9 +654,10 @@ def order_excess(out, order, spread) -> float:
 
 def check_flash(b, s, h, kh, d, causal, dtype):
     """Kernel against plain version on one case, q, k, v ~ N(0, 1) in
-    ``dtype``. Returns (max abs err vs attention_ref, max abs err vs
-    attention_kernel_order and its order_excess (both None in float32),
-    inputs)."""
+    ``dtype``. Returns (max abs err vs attention_ref, max abs err vs the
+    kernel's rounding twin (attention_kernel_order in bfloat16,
+    attention_tf32x3_order for the float32 tensor-core kernel, else None)
+    and, in bfloat16, its order_excess (else None), inputs)."""
     import torch
     from repro_torch.kernels.flash_attention import kernel, ref
     gen = torch.Generator(device="cuda")
@@ -633,12 +665,20 @@ def check_flash(b, s, h, kh, d, causal, dtype):
     dt = getattr(torch, dtype)
     q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dt)
                for shape in ((b, s, h, d), (b, s, kh, d), (b, s, kh, d)))
+    route = kernel.route_for(dt, d)
+    before = kernel.route_counts[route]
     out = kernel.flash_attention_cuda(q, k, v, causal=causal)
+    if kernel.route_counts[route] != before + 1:
+        raise AssertionError(f"flash {dtype} D={d} did not launch the "
+                             f"{route} kernel: {kernel.route_counts}")
     want = ref.attention_ref(q, k, v, causal=causal)
     order = None
     if dt == torch.bfloat16:
         order = ref.attention_kernel_order(q, k, v, causal=causal,
                                            block_k=kernel.TC_BLOCK_K)
+    elif route == "tf32":
+        order = ref.attention_tf32x3_order(
+            q, k, v, causal=causal, block_k=kernel.tf32_block_k(d))
     torch.cuda.synchronize()
     if out.dtype != q.dtype or out.shape != q.shape:
         raise AssertionError(f"flash output {out.dtype} {out.shape}")
@@ -646,6 +686,7 @@ def check_flash(b, s, h, kh, d, causal, dtype):
     order_err = excess = None
     if order is not None:
         order_err = (out.float() - order.float()).abs().max().item()
+    if dt == torch.bfloat16:
         spread = ref.attention_ref(q.float(), k.float(), v.float().abs(),
                                    causal=causal)
         excess = order_excess(out, order, spread)
@@ -653,9 +694,9 @@ def check_flash(b, s, h, kh, d, causal, dtype):
 
 
 def flash_cuda_core(q, k, v, causal):
-    """The CUDA-core kernel on these inputs, also in bf16 (before the
-    tensor-core kernel it served bf16 at every head dim), launched
-    through the library directly so that it is not counted."""
+    """The CUDA-core kernel on these inputs (before the tensor-core kernels
+    it served every dtype and head dim), launched through the library
+    directly so that it is not counted."""
     import torch
     from repro_torch.kernels.flash_attention import kernel as fk
     out = torch.empty_like(q)
@@ -673,12 +714,17 @@ def flash_cuda_core(q, k, v, causal):
 def flash_bound(b, s, h, kh, d, causal, dtype):
     """(bound ms, what bounds it, flops, bytes): 4*D flops for each visible
     (query, key) pair at the dtype's peak; q, k, v read and out written
-    once at 3.35 TB/s."""
+    once at 3.35 TB/s. Float32 at D 64 and 128 runs on the tensor cores in
+    3xTF32: three TF32 products for each, at the TF32 peak (the least time
+    for float32-accurate products on this card)."""
     pairs = s * (s + 1) // 2 if causal else s * s
     flops = 4 * d * b * h * pairs
     es = 4 if dtype == "float32" else 2
     nbytes = es * b * s * d * (2 * h + 2 * kh)
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    if dtype == "float32" and d in (64, 128):
+        t_ops = 3 * flops / PEAK_FLOPS["tf32"] * 1e3
+    else:
+        t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     if t_ops >= t_bytes:
         return t_ops, "operations", flops, nbytes
@@ -767,6 +813,11 @@ def phase_model_kernels(results: dict) -> None:
                                  f"({FLASH_ORDER_ULPS} ulps + "
                                  f"{FLASH_ORDER_P_FLIP} P|V|), max abs "
                                  f"{order_err}")
+        if (dtype == "float32" and order_err is not None
+                and not order_err <= TF32X3_ORDER_TOL):
+            raise AssertionError(f"flash {name}: kernel vs "
+                                 f"attention_tf32x3_order {order_err} > "
+                                 f"{TF32X3_ORDER_TOL}")
         bound_ms, bound_by, flops, nbytes = flash_bound(b, s, h, kh, d,
                                                         causal, dtype)
         ms = device_ms(cycling(lambda q, k, v: fk.flash_attention_cuda(
@@ -778,8 +829,9 @@ def phase_model_kernels(results: dict) -> None:
                 q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                 is_causal=causal, enable_gqa=True), (q, k, v), nbytes),
             reps=10, rounds=5)
+        route = fk.route_for(q.dtype, d)
         core_ms = core_err = None
-        if excess is not None:        # the tensor-core kernel ran
+        if route != "cuda_core":      # a tensor-core kernel ran
             core_err = (flash_cuda_core(q, k, v, causal).float() - fref
                         .attention_ref(q, k, v, causal=causal).float()
                         ).abs().max().item()
@@ -794,12 +846,14 @@ def phase_model_kernels(results: dict) -> None:
                       "order_excess": excess, "ms": ms,
                       "plain_ms": plain_ms, "library_ms": library_ms,
                       "bound_ms": bound_ms, "bound_by": bound_by,
-                      "flops": flops, "bytes": nbytes,
+                      "flops": flops, "bytes": nbytes, "flash_kernel": route,
+                      "bound_ms_cuda_core":
+                          flops / PEAK_FLOPS["float32"] * 1e3,
                       "cuda_core_ms": core_ms, "cuda_core_err": core_err})
         log("model kernels", f"flash {name} B={b} S={s} H={h} Kh={kh} D={d}"
-                             f" causal={causal} {dtype}: max abs err "
-                             f"{err!r} (tol {FLASH_TOL[dtype]}), vs kernel "
-                             f"order {order_err!r} ({excess!r} of its "
+                             f" causal={causal} {dtype} ({route}): max abs "
+                             f"err {err!r} (tol {FLASH_TOL[dtype]}), vs "
+                             f"kernel order {order_err!r} ({excess!r} of its "
                              f"limit), kernel "
                              f"{ms!r} ms ({flops / ms / 1e9!r} TFLOP/s), "
                              f"plain {plain_ms!r} ms, sdpa {library_ms!r} "
@@ -843,7 +897,10 @@ def _kernel_modules() -> dict:
 
 def _reset_counts():
     for k in _kernel_modules().values():
-        k.launch_count = 0
+        if hasattr(k, "route_counts"):    # flash: launch_count is their sum
+            k.route_counts.update(dict.fromkeys(k.route_counts, 0))
+        else:
+            k.launch_count = 0
 
 
 def _counts() -> dict:
@@ -855,6 +912,8 @@ def phase_prefill(results: dict, model) -> None:
 
     import torch
     from repro_torch.models import forward_train, param_count_actual
+
+    from repro_torch.kernels.flash_attention import kernel as fk
 
     cfg, params, tokens, call = model
     plain = dataclasses.replace(call, kernel_backend="ref")
@@ -868,6 +927,7 @@ def phase_prefill(results: dict, model) -> None:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = _counts()
+        routes = dict(fk.route_counts)
         t0 = time.perf_counter()
         logits_plain, _ = forward_train(params, cfg, plain, batch)
         torch.cuda.synchronize()
@@ -881,7 +941,8 @@ def phase_prefill(results: dict, model) -> None:
                    f"{wall!r} s = {n_tok / wall!r} tokens/s; plain "
                    f"versions {wall_plain!r} s = {n_tok / wall_plain!r} "
                    f"tokens/s; logits max abs diff {diff!r} (tol "
-                   f"{LOGITS_TOL}); launches {counts}")
+                   f"{LOGITS_TOL}); launches {counts}, flash by kernel "
+                   f"{routes}")
     if not torch.isfinite(logits).all():
         raise AssertionError("prefill logits are not finite")
     if tuple(logits.shape) != (PREFILL_B, PREFILL_S, cfg.vocab):
@@ -893,9 +954,12 @@ def phase_prefill(results: dict, model) -> None:
             or counts["rmsnorm"] != want_rms:
         raise AssertionError(f"expected {cfg.n_layers} flash and "
                              f"{want_rms} rmsnorm launches, got {counts}")
+    if routes["tf32"] != cfg.n_layers:
+        raise AssertionError(f"expected every flash launch of the float32 "
+                             f"prefill on the 3xTF32 kernel, got {routes}")
     results["prefill"] = {"wall_s": wall, "tokens_per_s": n_tok / wall,
                           "plain_wall_s": wall_plain, "logits_diff": diff,
-                          "launches": counts}
+                          "launches": counts, "flash_routes": routes}
     results["prefill_logits"] = logits
 
 
@@ -1120,7 +1184,9 @@ SSM_CASES = (
 # below 2 (the mixer's outputs stay below 4)
 SSM_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 MIXER_DI_N = (16384, 16)            # the Jamba mixer's Di and N
-SFU_EXP_PER_S = 132 * 16 * 1.98e9   # H100 SXM: 16 MUFU.EX2 a clock per SM
+SMS, CLOCK_HZ = 132, 1.98e9         # H100 SXM: SMs, boost clock
+SFU_EXP_PER_S = SMS * 16 * CLOCK_HZ  # 16 MUFU.EX2 a clock per SM
+SSM_FP32_OPS = 4                    # float32 operations per scan element
 SMOLLM_LENS = (256, 1000, 1777, 2048)
 QWEN_LENS = (1, 333, 1024, 2900, 4097, 5555, 7000, 8191)
 # (name, B, H, Kh, D, S, kv_len (None: full), dtype, max abs tolerance).
@@ -1212,21 +1278,51 @@ def check_ssm(b, s, di, n, dtype):
     return (out.float() - want.float()).abs().max().item(), inputs
 
 
+def ssm_order_excess(out, inputs) -> float:
+    """The largest |out - ssm_scan_kernel_order| in units of its limit, one
+    bf16 ulp of the twin's output + 2^-12: both add D x in float32 before
+    one cast to bf16, and their float32 values differ by rounding (the
+    order of the sums, ex2.approx), which can flip that cast by an ulp
+    (2^-12: the float32 gap near zero, where an ulp is small). The kernel
+    passes at <= 1. (ssm_scan_ref casts y before adding D x: it is within
+    SSM_TOL["bfloat16"] only where the outputs stay small, as the mixer's
+    do.)"""
+    import torch
+    from repro_torch.kernels.ssm_scan import ref
+    order = ref.ssm_scan_kernel_order(*inputs).float()
+    mag = order.abs()
+    _, e = torch.frexp(mag)            # mag in [2^(e-1), 2^e): ulp 2^(e-8)
+    ulp = torch.where(mag > 0, torch.exp2((e - 8).float()),
+                      torch.zeros_like(mag))
+    return ((out.float() - order).abs() / (ulp + 2.0 ** -12)).max().item()
+
+
 def ssm_bound(b, s, di, n, dtype):
-    """(bound ms, what bounds it, flops, bytes, exp ms): x and dt read and
-    y written once, B, C, A, D read once at 3.35 TB/s; 7 float32 operations
-    per (step, channel, state) (dt*A, exp, a*h, (dt*x)*B, +, h*C, +) and 3
-    per (step, channel) at 67 TFLOP/s; and the exponentials alone on the
-    special-function units, which the peak table does not show."""
+    """(bound ms, what bounds it, flops, bytes, exp ms, pipes ms): x and dt
+    read and y written once, B, C, A, D read once, at 3.35 TB/s; and the
+    pipes. Per (step, channel, state) the scan does SSM_FP32_OPS float32
+    operations (dt*A, (dt*x)*B, the fma into h, the fma of h*C into y) and
+    one exponential. The special-function units do 16 exponentials a
+    clock per SM (exp ms: all of them there); the FP32 pipe does 128
+    operations a clock, and a polynomial exp2 moves an exponential there
+    for c = 10 of them (Cody-Waite reduction, a degree-6 Horner
+    polynomial, the exponent by integer add). With the best share of the
+    exponentials on each, the pipes need elements x (4 + c) / (16 (8 + c))
+    clocks per SM (pipes ms, at the 1.98 GHz boost clock). flops counts
+    the float32 operations (4 per element, 3 per (step, channel)) for the
+    line."""
     es = 4 if dtype == "float32" else 2
     nbytes = es * (3 * b * s * di + 2 * b * s * n) + 4 * (di * n + di)
-    flops = 7 * b * s * di * n + 3 * b * s * di
+    elements = b * s * di * n
+    flops = SSM_FP32_OPS * elements + 3 * b * s * di
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS["float32"] * 1e3
-    exp_ms = b * s * di * n / SFU_EXP_PER_S * 1e3
-    if t_ops >= t_bytes:
-        return t_ops, "operations", flops, nbytes, exp_ms
-    return t_bytes, "bytes", flops, nbytes, exp_ms
+    exp_ms = elements / SFU_EXP_PER_S * 1e3
+    c = 10
+    clocks = elements * (SSM_FP32_OPS + c) / (16 * (8 + c)) / SMS
+    pipes_ms = clocks / CLOCK_HZ * 1e3
+    if pipes_ms >= t_bytes:
+        return pipes_ms, "operations", flops, nbytes, exp_ms, pipes_ms
+    return t_bytes, "bytes", flops, nbytes, exp_ms, pipes_ms
 
 
 def phase_ssm_kernel(results: dict) -> None:
@@ -1239,23 +1335,33 @@ def phase_ssm_kernel(results: dict) -> None:
         if not err <= SSM_TOL[dtype]:
             raise AssertionError(f"ssm_scan {name}: kernel vs plain {err} > "
                                  f"{SSM_TOL[dtype]}")
-        bound_ms, bound_by, flops, nbytes, exp_ms = ssm_bound(b, s, di, n,
-                                                              dtype)
+        bound_ms, bound_by, flops, nbytes, exp_ms, pipes_ms = ssm_bound(
+            b, s, di, n, dtype)
         ms = device_ms(cycling(kernel.ssm_scan_cuda, inputs, nbytes),
                        reps=10, rounds=5)
         plain_ms = device_ms(cycling(ref.ssm_scan_ref, inputs, nbytes),
                              reps=1, rounds=3)
+        # the memory path's share: the kernel's copies alone
+        loads_ms = None
+        if (di, n) == MIXER_DI_N and s == 2048:
+            loads_ms = device_ms(cycling(kernel.ssm_scan_loads_cuda, inputs,
+                                         nbytes), reps=10, rounds=5)
         cases.append({"case": name, "shape": [b, s, di, n], "dtype": dtype,
                       "max_abs_err": err, "tol": SSM_TOL[dtype], "ms": ms,
                       "plain_ms": plain_ms, "bound_ms": bound_ms,
                       "bound_by": bound_by, "exp_bound_ms": exp_ms,
-                      "flops": flops, "bytes": nbytes, "library_ms": None})
+                      "pipes_bound_ms": pipes_ms,
+                      "bytes_bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                      "flops": flops, "bytes": nbytes, "library_ms": None,
+                      "loads_only_ms": loads_ms})
         log("ssm kernel", f"{name} [{b}, {s}, {di}, {n}] {dtype}: max abs "
                           f"err {err!r} (tol {SSM_TOL[dtype]}), kernel "
-                          f"{ms!r} ms, plain {plain_ms!r} ms, bound "
-                          f"{bound_ms!r} ms by {bound_by} ({nbytes} bytes, "
-                          f"{flops} flop), exponentials alone {exp_ms!r} "
-                          f"ms ({nbytes / ms / 1e9!r} GB/s)")
+                          f"{ms!r} ms, plain {plain_ms!r} "
+                          f"ms, bound {bound_ms!r} ms by {bound_by} "
+                          f"({nbytes} bytes; pipes {pipes_ms!r} ms, "
+                          f"exponentials on the SFU alone {exp_ms!r} ms; "
+                          f"{nbytes / ms / 1e9!r} GB/s); copies alone "
+                          f"{loads_ms!r} ms")
         del inputs
         torch.cuda.empty_cache()
     results["ssm"] = cases
@@ -1505,6 +1611,7 @@ def kernel_entries(results: dict) -> list:
     rms, flash = results["rmsnorm"][0], results["flash"][0]
     ssm, dec = results["ssm"][0], results["decode_attention"][0]
     flash16 = _case(results["flash"], "smollm-prefill-bf16")
+    ssm16 = _case(results["ssm"], "jamba-mixer-bf16")
     dec16 = _case(results["decode_attention"], "qwen3-14b-full-bf16")
     return [{
         "name": "channel_ring_commit",
@@ -1549,6 +1656,10 @@ def kernel_entries(results: dict) -> list:
         "bound_ms": flash["bound_ms"],
         "bound_by": flash["bound_by"],
         "library_ms": flash["library_ms"],
+        "earlier_ms": flash["cuda_core_ms"],
+        "bound_ms_cuda_core": flash["bound_ms_cuda_core"],
+        "kernel": "flash_tf32_kernel",
+        "launches_by_kernel": results["prefill"]["flash_routes"],
         "ms_bf16": flash16["ms"],
         "library_ms_bf16": flash16["library_ms"],
         "bound_ms_bf16": flash16["bound_ms"],
@@ -1570,6 +1681,12 @@ def kernel_entries(results: dict) -> list:
         "bound_by": ssm["bound_by"],
         "library_ms": None,
         "exp_bound_ms": ssm["exp_bound_ms"],
+        "pipes_bound_ms": ssm["pipes_bound_ms"],
+        "loads_only_ms": ssm["loads_only_ms"],
+        "ms_bf16": ssm16["ms"],
+        "bound_ms_bf16": ssm16["bound_ms"],
+        "bound_by_bf16": ssm16["bound_by"],
+        "loads_only_ms_bf16": ssm16["loads_only_ms"],
         "cases": results["ssm"],
     }, {
         "name": "decode_attention",

@@ -93,11 +93,15 @@ def _scan_body(cfg: SMRConfig, n_ticks: int, env: Dict, draws: torch.Tensor,
 def _weighted_quantile(vals: torch.Tensor, weights: torch.Tensor,
                        q: float) -> torch.Tensor:
     """Weighted quantile over the last axis; zero-weight entries are inert
-    (they only flatten the CDF). vals, weights: [..., M] -> [...]."""
+    (they only flatten the CDF). vals, weights: [..., M] -> [...].
+
+    The CDF's running sums are float64 sums rounded to float32, as the
+    CPU's float32 cumsum gives them; CUDA's float32 cumsum scans in
+    float32 in another order."""
     order = torch.argsort(vals, dim=-1, stable=True)
     v = torch.gather(vals, -1, order)
     w = torch.gather(weights, -1, order)
-    cum = torch.cumsum(w, dim=-1)
+    cum = torch.cumsum(w.double(), dim=-1).float()
     tot = cum[..., -1:]
     cdf = cum / torch.where(tot > 0, tot, 1.0)
     qv = torch.full(cdf.shape[:-1] + (1,), q, dtype=cdf.dtype,
@@ -111,7 +115,16 @@ def _weighted_quantile(vals: torch.Tensor, weights: torch.Tensor,
 def _batch_metrics(cfg: SMRConfig, create_t, arr_mean, count, commit_t,
                    warmup_frac=0.15, bucket_ms=500.0) -> Dict:
     """Metrics over batch records [B, n, R] (ticks -> ms via cfg.tick_ms),
-    on the device, per lane."""
+    on the device, per lane.
+
+    The sums of float32 terms (throughput, committed, the timelines and
+    the per-origin latency sums) are taken in float64 and rounded once to
+    float32. A float64 sum of float32 terms is exact unless they span more
+    than 53 bits (a total above 2^30 with terms below 2^-22 in it), so in
+    the simulator's range no order of summation can move the result. In
+    float32 the CUDA reduction and the CPU's add in other orders, and
+    ``scatter_add_`` adds by atomics in no fixed order on the card (the
+    per-origin latency timeline differed from run to run)."""
     B, n = count.shape[:2]
     n_ticks = netsim.sim_ticks(cfg)
     ok = torch.isfinite(commit_t) & (count > 0) & torch.isfinite(create_t)
@@ -122,7 +135,10 @@ def _batch_metrics(cfg: SMRConfig, create_t, arr_mean, count, commit_t,
     w_o = torch.where(in_win, count, 0.0)                     # [B, n, R]
     w = w_o.reshape(B, -1)
     if win_s > 0:
-        tput = w.sum(dim=1) / win_s
+        # a tensor divisor: CUDA divides by a Python scalar as a product
+        # with its float32 reciprocal, one ulp off the CPU's quotient
+        tot = w.double().sum(dim=1).float()
+        tput = tot / torch.full_like(tot, win_s)
     else:
         tput = torch.zeros(B, dtype=torch.float32, device=count.device)
     lat_flat = lat_ms.reshape(B, -1)
@@ -132,22 +148,27 @@ def _batch_metrics(cfg: SMRConfig, create_t, arr_mean, count, commit_t,
     b = torch.where(ok, commit_t * (cfg.tick_ms / bucket_ms), 0.0
                     ).to(torch.int32).clamp(0, nbuck - 1).long()
     cnt_ok = torch.where(ok, count, 0.0)
-    z = lambda *s: torch.zeros(s, dtype=torch.float32,  # noqa: E731
-                               device=count.device)
-    timeline = z(B, nbuck).scatter_add_(1, b.reshape(B, -1),
-                                        cnt_ok.reshape(B, -1))
+
+    def bucket_sum(*shape, index, src):
+        """scatter_add_ of float32 ``src`` along the last axis, exact."""
+        return torch.zeros(shape, dtype=torch.float64, device=count.device
+                           ).scatter_add_(len(shape) - 1, index,
+                                          src.double()).float()
+
+    timeline = bucket_sum(B, nbuck, index=b.reshape(B, -1),
+                          src=cnt_ok.reshape(B, -1))
     timeline = timeline / (bucket_ms / 1000.0)
     # per-origin client-perceived latency: where is the latency paid?
     med_o = _weighted_quantile(lat_ms, w_o, 0.5)
     p99_o = _weighted_quantile(lat_ms, w_o, 0.99)
-    tl_o = z(B, n, nbuck).scatter_add_(2, b, cnt_ok)
-    lat_sum = z(B, n, nbuck).scatter_add_(
-        2, b, cnt_ok * torch.where(ok, lat_ms, 0.0))
+    tl_o = bucket_sum(B, n, nbuck, index=b, src=cnt_ok)
+    lat_sum = bucket_sum(B, n, nbuck, index=b,
+                         src=cnt_ok * torch.where(ok, lat_ms, 0.0))
     lat_tl_o = torch.where(tl_o > 0, lat_sum / torch.clamp(tl_o, min=1e-9),
                            float("nan"))
     return {"throughput": tput, "median_ms": med, "p99_ms": p99,
             "timeline": timeline,
-            "committed": cnt_ok.reshape(B, -1).sum(dim=1),
+            "committed": cnt_ok.reshape(B, -1).double().sum(dim=1).float(),
             "origin_median_ms": med_o, "origin_p99_ms": p99_o,
             "origin_timeline": tl_o / (bucket_ms / 1000.0),
             "origin_lat_ms_timeline": lat_tl_o}

@@ -29,15 +29,50 @@
 // not be a multiple of anything and nothing is padded. The head dim is a
 // template parameter in {16, 32, 64, 128}.
 //
-// Bound on this card: operations. At the prefill's B=4, S=2048, H=9, D=64,
-// causal, the scores and the weighted sum take 4 * D flops for each of the
-// B * H * S(S+1)/2 visible (query, key) pairs, 1.93e10 flops, about 0.29 ms
-// at the card's 67 TFLOP/s in float32 without tensor cores (TF32 would
-// change the results); the bytes, 50 MB of q, k, v and out, take 0.015 ms.
-// This kernel does the products on the CUDA cores, one FMA per loaded
-// float and a shuffle pair per score. It serves float32 (the tensor cores
-// would mean TF32, which changes the results) and bfloat16 at D in
-// {16, 32}.
+// This CUDA-core kernel serves D in {16, 32} (float32 and bfloat16), which
+// only the tests use. It does the products one FMA per loaded float, with
+// a shuffle pair per score: at the prefill's B=4, S=2048, H=9, D=64,
+// causal, the 1.93e10 flops took 1.71 ms, 6x their 0.29 ms at the card's
+// 67 TFLOP/s without tensor cores.
+//
+// float32 at D in {64, 128}: flash_tf32_kernel (namespace tf32 below), on
+// the tensor cores in 3xTF32. One TF32 pass keeps 10 mantissa bits and
+// would miss the float32 tolerance (1e-5) by two orders. Each operand x
+// becomes hi = tf32(x) (rounded to nearest, ties away, as cvt.rna.tf32.f32
+// rounds; low 13 bits cleared) and lo = tf32(x - hi), and each 8-wide
+// block of a product is a_lo b_hi + a_hi b_lo + a_hi b_hi (the a_lo b_lo
+// term, 2^-22 of the product, is dropped), for S = Q K^T and O += P V
+// alike. The tensor cores round each product step toward zero after
+// aligning its terms to the largest with 2 bits to spare (read through
+// this kernel on an H100, tools/tf32_accuracy.py): fed straight into S and
+// O, every step cut them short by up to an ulp, and the kernel was 5x the
+// CUDA-core kernel's error (5.2e-6 against the float64 result at the
+// prefill's shape). So each block's three products go into a zeroed
+// temporary, added to S or O in float32 (mma3): 5.4e-7, below the
+// CUDA-core kernel's 9.5e-7, at 4 more FADDs a block and registers
+// (kernels/flash_attention/ref.py::attention_tf32x3_order models all of
+// this on the CPU). Bound: operations, 3 x 1.93e10 flops at the card's
+// 495 TFLOP/s in TF32, 0.117 ms at the prefill's shape. Design, after
+// FlashAttention-2 with mma.sync:
+//   - one CTA per (64-row query tile, head, batch), four warps of 16 rows;
+//     mma.sync m16n8k8 TF32, so a warp's rows stay its own all along;
+//   - K and V tiles of 32 keys in a 3-stage ring of shared memory, filled
+//     by 16-byte cp.async (rows past Sk as zeros), so the next tiles'
+//     loads overlap this tile's products; rows padded to D + 4 floats,
+//     which makes K's fragment reads (K[g][t]) and V's (V[2t][g]) free of
+//     bank conflicts. (64-key tiles at D = 64 spill more registers beside
+//     the temporaries and were slower);
+//   - Q is split once into its TF32 halves, held in registers (D a
+//     thread; splitting it afresh for every key tile, or keeping its
+//     halves in shared memory, was slower at both head dims);
+//   - P needs no shuffle and no round trip through shared memory: the
+//     product sums over keys, so inside each 8-key block slot t is key 2t
+//     and slot t + 4 key 2t + 1, and S's accumulator is then P's A
+//     fragment as it lies (V's B fragment is read from the same rows);
+//   - causal CTAs skip the key tiles wholly above the diagonal, and the
+//     query tiles are launched heaviest first, as flash_tc_kernel does;
+//   - the scale, the mask, the online softmax (base 2, ex2.approx) and
+//     acc / max(l, 1e-30) are the CUDA-core kernel's.
 //
 // bfloat16 at D in {64, 128}: flash_tc_kernel (namespace tc below), on the
 // tensor cores. Bound: operations, 1.93e10 flops at the prefill's shape,
@@ -739,6 +774,325 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
 
 }  // namespace tc
 
+// ---------------------------------------------------------------------------
+// The float32 kernel on the tensor cores, in 3xTF32 (D in {64, 128}).
+// ---------------------------------------------------------------------------
+namespace tf32 {
+
+constexpr int kBQ = 64;                  // query rows per CTA: 4 warps x 16
+constexpr int kThreads = 128;
+constexpr int kStages = 3;               // K/V ring depth
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int D>
+struct Cfg {
+  static constexpr int kBK = 32;                        // keys per tile
+  static constexpr int kStride = D + 4;   // floats a shared row: no conflicts
+  static constexpr int kTile = kBK * kStride;           // floats, K or V
+  static constexpr int kSmem = kStages * 2 * kTile * 4; // bytes
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// The TF32 value nearest a finite x, ties away from zero, as
+// cvt.rna.tf32.f32 rounds it, with its 13 low bits cleared: half a TF32
+// ulp added to the magnitude bits, then the low bits masked. Two integer
+// instructions; cvt.rna.tf32.f32 compiles to four on sm_90a (its NaN check
+// among them), for each of the six roundings of a product's operands.
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x ~ hi + lo: hi the TF32 rounding of x, lo that of the rest (exact in
+// float32 before its own rounding).
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = to_tf32(x - __uint_as_float(hi));
+}
+
+// d += a b, m16n8k8, TF32 operands, float32 accumulator.
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a b in 3xTF32: a_lo b_hi, a_hi b_lo, then a_hi b_hi, into a zeroed
+// temporary that is then added to d in float32 (rounded to nearest). The
+// tensor cores round each product step toward zero, relative to the
+// accumulator it adds to: fed into d, every step of a long sum would cut
+// it short by up to an ulp of d (into O, 3 x Sk / 8 steps: 5x the
+// CUDA-core kernel's error at S = 2048); here each step is cut relative to
+// the block's own sum of 8 products.
+__device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ah)[4],
+                                     const uint32_t (&al)[4], uint32_t bh0,
+                                     uint32_t bh1, uint32_t bl0,
+                                     uint32_t bl1) {
+  float t[4] = {0.f, 0.f, 0.f, 0.f};
+  mma(t, al, bh0, bh1);
+  mma(t, ah, bl0, bl1);
+  mma(t, ah, bh0, bh1);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) d[e] += t[e];
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float r;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
+  return r;
+}
+
+// 16 bytes global -> shared, asynchronously; `bytes` 0 fills zeros.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;"
+               ::"r"(dst), "l"(src), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// The K and V rows key0 .. key0 + kBK - 1 into one ring stage, 16 bytes a
+// copy; rows past Sk come in as zeros.
+template <int D>
+__device__ __forceinline__ void load_tile(uint32_t ks, uint32_t vs,
+                                          const float* kb, const float* vb,
+                                          int key0, int Sk,
+                                          long long kv_stride) {
+  using C = Cfg<D>;
+  constexpr int kPieces = D / 4;                    // 16-byte pieces a row
+  constexpr int kPer = C::kBK * kPieces / kThreads;
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    const int idx = threadIdx.x + i * kThreads;
+    const int r = idx / kPieces, c = idx % kPieces;
+    const int key = key0 + r;
+    const bool in = key < Sk;
+    const long long off = (long long)(in ? key : 0) * kv_stride + c * 4;
+    const uint32_t so = (uint32_t)((r * C::kStride + c * 4) * 4);
+    cp_async16(ks + so, kb + off, in ? 16 : 0);
+    cp_async16(vs + so, vb + off, in ? 16 : 0);
+  }
+}
+
+// Grid (H, B, query tiles), 128 threads: four warps of 16 query rows. The
+// query tile is nq - 1 - blockIdx.z, so the CTAs with the most key tiles
+// (causal) are scheduled first. `scale_log2` is log2(e) / sqrt(D): scores
+// are kept in base-2 units and exponentiated by ex2.
+template <int D>
+__global__ void __launch_bounds__(kThreads, 2)
+flash_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v, float* __restrict__ out,
+                  int Sq, int Sk, int H, int Kh, int causal,
+                  float scale_log2) {
+  using C = Cfg<D>;
+  constexpr int kBK = C::kBK;
+  constexpr int kNB = kBK / 8;           // 8-key blocks of a tile
+  constexpr int kDB = D / 8;             // 8-column blocks of the head dim
+  extern __shared__ __align__(16) float ring[];
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = ((int)gridDim.z - 1 - (int)blockIdx.z) * kBQ;
+  const int kvh = h / (H / Kh);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int wrow0 = q0 + warp * 16;
+  const int row0 = wrow0 + g, row1 = row0 + 8;
+
+  const long long q_stride = (long long)H * D;
+  const long long kv_stride = (long long)Kh * D;
+  const float* qb = q + (long long)b * Sq * q_stride + (long long)h * D;
+  const float* kb = k + (long long)b * Sk * kv_stride + (long long)kvh * D;
+  const float* vb = v + (long long)b * Sk * kv_stride + (long long)kvh * D;
+  const int nk = (Sk + kBK - 1) / kBK;
+  const int n_tiles = causal ? min(nk, (q0 + kBQ - 1) / kBK + 1) : nk;
+
+  const uint32_t ring0 = smem_u32(ring);
+  constexpr uint32_t kStageBytes = 2 * C::kTile * 4;
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < n_tiles) {
+      load_tile<D>(ring0 + s * kStageBytes, ring0 + s * kStageBytes
+                   + C::kTile * 4, kb, vb, s * kBK, Sk, kv_stride);
+    }
+    cp_commit();
+  }
+
+  // this thread's A fragments of Q (rows g and g + 8, columns t and t + 4
+  // of every 8-column block), split once into TF32 halves
+  uint32_t qh[kDB][4], ql[kDB][4];
+#pragma unroll
+  for (int c = 0; c < kDB; ++c) {
+    const int col[4] = {c * 8 + t, c * 8 + t, c * 8 + t + 4, c * 8 + t + 4};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = e % 2 ? row1 : row0;
+      split(row < Sq ? qb[row * q_stride + col[e]] : 0.f, qh[c][e],
+            ql[c][e]);
+    }
+  }
+  float o[kDB][4];
+#pragma unroll
+  for (int c = 0; c < kDB; ++c) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[c][e] = 0.f;
+  }
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+
+  for (int j = 0; j < n_tiles; ++j) {
+    cp_wait<kStages - 2>();              // tile j has landed (this thread)
+    __syncthreads();                     // ... all threads; j - 1 is read
+    const int jn = j + kStages - 1;
+    if (jn < n_tiles) {
+      const uint32_t st = ring0 + (jn % kStages) * kStageBytes;
+      load_tile<D>(st, st + C::kTile * 4, kb, vb, jn * kBK, Sk, kv_stride);
+    }
+    cp_commit();
+    const float* ks = ring + (j % kStages) * 2 * C::kTile;
+    const float* vs = ks + C::kTile;
+
+    // S = Q K^T: [16 rows x kBK keys] a warp. K's B fragment of key block
+    // nb, column block c: K[nb*8 + g][c*8 + t] and [.. + 4]
+    float s[kNB][4];
+#pragma unroll
+    for (int nb = 0; nb < kNB; ++nb) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nb][e] = 0.f;
+    }
+#pragma unroll
+    for (int c = 0; c < kDB; ++c) {
+#pragma unroll
+      for (int nb = 0; nb < kNB; ++nb) {
+        const float* kr = ks + (nb * 8 + g) * C::kStride + c * 8 + t;
+        uint32_t bh0, bl0, bh1, bl1;
+        split(kr[0], bh0, bl0);
+        split(kr[4], bh1, bl1);
+        mma3(s[nb], qh[c], ql[c], bh0, bh1, bl0, bl1);
+      }
+    }
+
+    // scale, mask (only where a key may lie past Sk or above a row's
+    // diagonal), online softmax in base 2. Thread (g, t) holds keys
+    // nb*8 + 2t and + 1 of rows g (e = 0, 1) and g + 8 (e = 2, 3)
+    const int key0 = j * kBK;
+    const bool edge = key0 + kBK > Sk || (causal && key0 + kBK - 1 > wrow0);
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int nb = 0; nb < kNB; ++nb) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[nb][e] * scale_log2;
+        if (edge) {
+          const int key = key0 + nb * 8 + 2 * t + (e & 1);
+          const int row = e < 2 ? row0 : row1;
+          if (key >= Sk || (causal && key > row)) x = -INFINITY;
+        }
+        s[nb][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    }
+    float m_use[2], corr[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m[r], mx[r]);
+      // a row with no visible key yet keeps p = 0 and corr = 0
+      m_use[r] = m_new == -INFINITY ? 0.f : m_new;
+      corr[r] = ex2(m[r] - m_use[r]);
+      m[r] = m_new;
+      l[r] *= corr[r];
+    }
+#pragma unroll
+    for (int nb = 0; nb < kNB; ++nb) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[nb][e] = ex2(s[nb][e] - m_use[e >> 1]);
+        l[e >> 1] += s[nb][e];
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < kDB; ++c) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[c][e] *= corr[e >> 1];
+    }
+
+    // O += P V. The sum runs over keys, so each 8-key block's key order is
+    // free: slot t of the product is key 2t and slot t + 4 key 2t + 1.
+    // Then P's A fragment is S's accumulator as it lies (a0 = P[g][2t],
+    // a1 = P[g+8][2t], a2 = P[g][2t+1], a3 = P[g+8][2t+1]), and V's B
+    // fragment of column block c is V[2t][c*8 + g] and V[2t + 1][c*8 + g]
+#pragma unroll
+    for (int nb = 0; nb < kNB; ++nb) {
+      uint32_t ph[4], pl[4];
+      split(s[nb][0], ph[0], pl[0]);
+      split(s[nb][2], ph[1], pl[1]);
+      split(s[nb][1], ph[2], pl[2]);
+      split(s[nb][3], ph[3], pl[3]);
+      const float* vr = vs + (nb * 8 + 2 * t) * C::kStride + g;
+#pragma unroll
+      for (int c = 0; c < kDB; ++c) {
+        uint32_t bh0, bl0, bh1, bl1;
+        split(vr[c * 8], bh0, bl0);
+        split(vr[C::kStride + c * 8], bh1, bl1);
+        mma3(o[c], ph, pl, bh0, bh1, bl0, bl1);
+      }
+    }
+  }
+  cp_wait<0>();
+
+  // acc / max(l, 1e-30), rows below Sq; a quad holds a row's 8-column
+  // blocks as float2 pairs
+  float denom[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    denom[r] = fmaxf(l[r], 1e-30f);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r ? row1 : row0;
+    if (row >= Sq) continue;
+    float* ob = out + (((long long)b * Sq + row) * H + h) * D + 2 * t;
+#pragma unroll
+    for (int c = 0; c < kDB; ++c) {
+      *reinterpret_cast<float2*>(ob + c * 8) =
+          make_float2(o[c][2 * r] / denom[r], o[c][2 * r + 1] / denom[r]);
+    }
+  }
+}
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, void* out, int B,
+           int Sq, int Sk, int H, int Kh, int causal, float scale,
+           cudaStream_t stream) {
+  using C = Cfg<D>;
+  static bool attr_set = false;
+  if (!attr_set) {
+    cudaError_t err = cudaFuncSetAttribute(
+        flash_tf32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        C::kSmem);
+    if (err != cudaSuccess) return (int)err;
+    attr_set = true;
+  }
+  const dim3 grid((unsigned)H, (unsigned)B, (unsigned)((Sq + kBQ - 1) / kBQ));
+  flash_tf32_kernel<D><<<grid, kThreads, C::kSmem, stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (float*)out, Sq, Sk,
+      H, Kh, causal, scale * kLog2e);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace tf32
+
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and out alike). Launches on
@@ -791,6 +1145,38 @@ int flash_attention_tc_launch(const void* q, const void* k, const void* v,
                            (cudaStream_t)stream);
   }
   return (int)cudaErrorInvalidValue;
+}
+
+// The float32 3xTF32 tensor-core kernel, D in {64, 128}. q, k, v and out
+// are contiguous float32 [B, S, heads, D], 16-byte aligned; the tiles are
+// this source's (tf32::Cfg).
+int flash_attention_tf32_launch(const void* q, const void* k, const void* v,
+                                void* out, int B, int Sq, int Sk, int H,
+                                int Kh, int D, int causal, float scale,
+                                int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (B <= 0 || Sq <= 0 || H <= 0) return 0;
+  if (Kh <= 0 || H % Kh != 0 || B > 65535 || H > 65535 || Sk < 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (D == 64) {
+    return tf32::launch<64>(q, k, v, out, B, Sq, Sk, H, Kh, causal, scale,
+                            (cudaStream_t)stream);
+  }
+  if (D == 128) {
+    return tf32::launch<128>(q, k, v, out, B, Sq, Sk, H, Kh, causal, scale,
+                             (cudaStream_t)stream);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// The key tile of the float32 tensor-core kernel at head dim D (0 for a D
+// it is not built for): the online softmax's rounding follows it.
+int flash_attention_tf32_block_k(int D) {
+  if (D == 64) return tf32::Cfg<64>::kBK;
+  if (D == 128) return tf32::Cfg<128>::kBK;
+  return 0;
 }
 
 const char* flash_attention_error_string(int err) {

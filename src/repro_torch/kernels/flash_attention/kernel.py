@@ -8,13 +8,16 @@ transposes nor its padding of S to a block multiple are needed: ragged S
 is bound-checked in the kernel. See the source for the design and its
 bound.
 
-Two kernels, chosen by dtype: float32 (and bfloat16 at D in {16, 32})
-goes to the CUDA-core kernel; bfloat16 at D in ``TC_HEAD_DIMS``
-goes to the tensor-core kernel (wgmma, TMA), launched with the plan of
-``tc_plan``. Both count in ``launch_count``.
+Three kernels, chosen by dtype and head dim (``route_for``): at D in
+``TC_HEAD_DIMS`` bfloat16 goes to the bf16 tensor-core kernel (wgmma,
+TMA), launched with the plan of ``tc_plan``, and float32 to the 3xTF32
+tensor-core kernel (mma.sync, cp.async), whose tiles are fixed in the
+source (``tf32_block_k`` reads its key tile from the library); D in
+{16, 32} goes to the CUDA-core kernel.
 
-The library is built at first use (kernels/_build.py). ``launch_count``
-counts the launches this wrapper made; nothing else changes it.
+The library is built at first use (kernels/_build.py). ``route_counts``
+counts the launches this wrapper made, by kernel ("tf32", "tc",
+"cuda_core"); nothing else changes it. ``launch_count`` is their sum.
 """
 from __future__ import annotations
 
@@ -30,14 +33,20 @@ from repro_torch.kernels import _build
 NAME = "flash_attention"
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 128)
-TC_HEAD_DIMS = (64, 128)     # bfloat16 head dims of the tensor-core kernel
-TC_BLOCK_Q = 128             # query rows per CTA (two warpgroups of 64)
-TC_BLOCK_K = 128             # keys per tile of the K/V ring
-TC_STAGES = {64: 3, 128: 2}  # ring depth by head dim
+TC_HEAD_DIMS = (64, 128)     # head dims of the tensor-core kernels
+TC_BLOCK_Q = 128             # bf16: query rows per CTA (two warpgroups)
+TC_BLOCK_K = 128             # bf16: keys per tile of the K/V ring
+TC_STAGES = {64: 3, 128: 2}  # bf16: ring depth by head dim
 SMEM_PER_BLOCK = 232448      # bytes a block may use on sm_90
 
-launch_count = 0
+route_counts = {"tf32": 0, "tc": 0, "cuda_core": 0}
 _built: Optional[_build.Built] = None
+
+
+def __getattr__(name: str):
+    if name == "launch_count":
+        return sum(route_counts.values())
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 def build() -> _build.Built:
@@ -55,6 +64,14 @@ def build() -> _build.Built:
                        + [ctypes.c_float] + [ctypes.c_int] * 4
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
+        fn = built.lib.flash_attention_tf32_launch
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+                       + [ctypes.c_float] + [ctypes.c_int]
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        fn = built.lib.flash_attention_tf32_block_k
+        fn.argtypes = [ctypes.c_int]
+        fn.restype = ctypes.c_int
         err_str = built.lib.flash_attention_error_string
         err_str.argtypes = [ctypes.c_int]
         err_str.restype = ctypes.c_char_p
@@ -64,7 +81,7 @@ def build() -> _build.Built:
 
 @dataclass(frozen=True)
 class TcPlan:
-    """The launch constants of the tensor-core kernel for one head dim; the
+    """The launch constants of a tensor-core kernel for one head dim; the
     source is built with the same ones and refuses any others."""
     block_q: int
     block_k: int
@@ -84,13 +101,31 @@ def tc_plan(d: int) -> TcPlan:
                   smem_bytes=smem)
 
 
+def tf32_block_k(d: int) -> int:
+    """The key tile of the float32 tensor-core kernel at head dim ``d``, as
+    the library is built (the tile ``ref.attention_tf32x3_order`` needs to
+    follow the kernel's order). Needs the library, so a card."""
+    if d not in TC_HEAD_DIMS:
+        raise ValueError(f"the tensor-core kernel takes head_dim "
+                         f"{TC_HEAD_DIMS}, got {d}")
+    return build().lib.flash_attention_tf32_block_k(d)
+
+
+def route_for(dtype: torch.dtype, d: int) -> str:
+    """The kernel that serves ``dtype`` at head dim ``d`` (a key of
+    ``route_counts``): at D in TC_HEAD_DIMS "tc" for bfloat16 and "tf32"
+    for float32, else "cuda_core"."""
+    if d not in TC_HEAD_DIMS:
+        return "cuda_core"
+    return "tc" if dtype == torch.bfloat16 else "tf32"
+
+
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True) -> torch.Tensor:
     """q: [B, Sq, H, D]; k, v: [B, Sk, Kh, D]; one dtype (float32 or
     bfloat16), contiguous, on one CUDA device; H % Kh == 0; D in
     HEAD_DIMS. Returns a new [B, Sq, H, D] tensor of q's dtype, launched
     on the current stream."""
-    global launch_count
     if not q.is_cuda:
         raise ValueError(f"the CUDA flash attention kernel needs CUDA "
                          f"tensors, got q on {q.device}")
@@ -122,16 +157,23 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dev = q.device
     index = dev.index if dev.index is not None else torch.cuda.current_device()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    if q.dtype == torch.bfloat16 and d in TC_HEAD_DIMS:
+    route = route_for(q.dtype, d)
+    if route != "cuda_core":
         for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
             if t.data_ptr() % 16:
                 raise ValueError(f"{name} must be 16-byte aligned for the "
-                                 "tensor-core kernel's TMA copies")
+                                 "tensor-core kernels' 16-byte copies")
+    if route == "tc":
         plan = tc_plan(d)
         err = lib.flash_attention_tc_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             b, sq, sk, h, kh, d, int(bool(causal)), 1.0 / math.sqrt(d),
             plan.block_q, plan.block_k, plan.stages, index, stream)
+    elif route == "tf32":
+        err = lib.flash_attention_tf32_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            b, sq, sk, h, kh, d, int(bool(causal)), 1.0 / math.sqrt(d),
+            index, stream)
     else:
         err = lib.flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -140,5 +182,5 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if err != 0:
         raise RuntimeError("flash_attention launch failed: "
                            + lib.flash_attention_error_string(err).decode())
-    launch_count += 1
+    route_counts[route] += 1
     return out

@@ -6,7 +6,10 @@ MHA, a sequence that is no block multiple, MQA — causal and not. Tolerance
 for the rounding order of the bf16 tensor-core kernel
 (``ref.attention_kernel_order``) at ragged S, G in {1, 3, 5, 8} and D in
 {64, 128}, the launch plan that kernel's wrapper computes, and the limit
-``chip_smoke.py`` holds the kernel to against that rounding order."""
+``chip_smoke.py`` holds the kernel to against that rounding order. And
+the float32 tensor-core kernel's 3xTF32 arithmetic
+(``ref.attention_tf32x3_order``): within the float32 tolerance of both
+packages' oracles, where one TF32 pass alone is not."""
 import importlib.util
 from pathlib import Path
 
@@ -177,3 +180,108 @@ def test_order_limit_separates_faults(fault, d):
         assert excess <= 1, excess
     else:
         assert excess > 1, excess
+
+
+def test_to_tf32_rounds_to_nearest_ties_away():
+    """The kernel's TF32 rounding (that of cvt.rna.tf32.f32): 10 mantissa
+    bits kept, ties away from zero, the 13 low bits cleared; hi + lo
+    carries x to 2^-22."""
+    ulp = 2.0 ** -10
+    x = torch.tensor([1.0, 1 + ulp / 2, 1 + 1.5 * ulp, -(1 + ulp / 2),
+                      1 + ulp / 2 - 2.0 ** -23, 3.0e-30, -7.5e8])
+    hi = ref.to_tf32(x)
+    want = [1.0, 1 + ulp, 1 + 2 * ulp, -(1 + ulp), 1.0]
+    assert hi[:5].tolist() == want
+    assert (hi.view(torch.int32) & 0x1FFF).eq(0).all()
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.standard_normal(10000, dtype=np.float32)
+                         * 10.0 ** rng.uniform(-3, 3, 10000).astype(
+                             np.float32))
+    hi = ref.to_tf32(x)
+    lo = ref.to_tf32(x - hi)
+    assert ((x - hi).abs() <= 2.0 ** -11 * x.abs()).all()
+    assert ((x.double() - hi.double() - lo.double()).abs()
+            <= 2.0 ** -22 * x.double().abs()).all()
+
+
+@pytest.mark.parametrize("b,s,h,kh,d", ORDER_SHAPES)
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("block_k", [32, 64])
+def test_tf32x3_order_matches_reference(b, s, h, kh, d, causal, block_k):
+    """The float32 tensor-core kernel's arithmetic (TF32 halves, three
+    products a step rounded toward zero, a key tile of 32 or 64 as the
+    kernel takes at D 128 and 64) against the reference's attention_ref
+    and its Pallas kernel in interpret mode, at the reference test's float32
+    tolerance 5e-6, and against the port's own oracle."""
+    jdt, _, tol = DTYPES["float32"]
+    rng = np.random.RandomState(4)
+    qj, qt = _pair(rng.standard_normal((b, s, h, d)).astype(np.float32),
+                   jdt, torch.float32)
+    kj, kt = _pair(rng.standard_normal((b, s, kh, d)).astype(np.float32),
+                   jdt, torch.float32)
+    vj, vt = _pair(rng.standard_normal((b, s, kh, d)).astype(np.float32),
+                   jdt, torch.float32)
+    out = ref.attention_tf32x3_order(qt, kt, vt, causal=causal,
+                                     block_k=block_k)
+    assert out.shape == qt.shape and out.dtype == torch.float32
+    got = out.numpy()
+    assert float(np.max(np.abs(got - _as_np(jax_ref(qj, kj, vj,
+                                                    causal=causal))))) < tol
+    assert float((out - ref.attention_ref(qt, kt, vt, causal=causal))
+                 .abs().max()) < tol
+    if causal or s % BLOCK == 0:      # see test_flash_matches_reference
+        kern = _as_np(jax_flash(qj, kj, vj, causal=causal, bq=BLOCK,
+                                bk=BLOCK))
+        assert float(np.max(np.abs(got - kern))) < tol
+
+
+@pytest.mark.parametrize("d", kernel.TC_HEAD_DIMS)
+@pytest.mark.parametrize("rounding", ["rz", "rn"])
+def test_one_tf32_pass_misses_the_float32_tolerance(d, rounding):
+    """What the split is for: chip_smoke.py holds the float32 kernel to
+    attention_ref within FLASH_TOL["float32"] = 1e-5. Three TF32 passes
+    stay 4x inside it, their product steps rounded toward zero (as the
+    tensor cores round) or to nearest; one pass (a_hi b_hi alone) is 10x
+    outside, so a kernel that dropped the compensating products would fail
+    there."""
+    tol = _chip_smoke().FLASH_TOL["float32"]
+    rng = np.random.default_rng(5)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
+               for shape in ((1, 192, 4, d), (1, 192, 2, d), (1, 192, 2, d)))
+    want = ref.attention_ref(q, k, v, causal=True)
+    three = ref.attention_tf32x3_order(q, k, v, causal=True,
+                                       rounding=rounding)
+    one = ref.attention_tf32x3_order(q, k, v, causal=True, passes=1,
+                                     rounding=rounding)
+    assert float((three - want).abs().max()) < tol / 4
+    assert float((one - want).abs().max()) > 10 * tol
+
+
+def test_round_to_f32_toward_zero_and_to_nearest():
+    """The twin's rounding of a fused product step: "rn" as float64 ->
+    float32 rounds, "rz" one float32 ulp nearer zero wherever that rounded
+    away from zero, for either sign; values float32 holds stay as they
+    are."""
+    ulp = 2.0 ** -23
+    x = torch.tensor([1 + 0.75 * ulp, 1 + 0.25 * ulp, -(1 + 0.75 * ulp),
+                      -(1 + 0.25 * ulp), 1 + ulp, -3.0, 0.0],
+                     dtype=torch.float64)
+    assert ref.round_to_f32(x, "rn").tolist() == [
+        1 + ulp, 1.0, -(1 + ulp), -1.0, 1 + ulp, -3.0, 0.0]
+    assert ref.round_to_f32(x, "rz").tolist() == [
+        1.0, 1.0, -1.0, -1.0, 1 + ulp, -3.0, 0.0]
+    with pytest.raises(ValueError, match="rounding"):
+        ref.round_to_f32(x, "rd")
+
+
+@pytest.mark.parametrize("d", kernel.HEAD_DIMS)
+def test_route_for_sends_float32_at_64_and_128_to_tf32(d):
+    """Which kernel serves a launch: at D 64 and 128 float32 never reaches
+    the CUDA-core kernel."""
+    tc = d in (64, 128)
+    assert kernel.route_for(torch.float32, d) == ("tf32" if tc
+                                                  else "cuda_core")
+    assert kernel.route_for(torch.bfloat16, d) == ("tc" if tc
+                                                   else "cuda_core")
+    assert kernel.route_for(torch.float32, d) in kernel.route_counts
+    assert kernel.launch_count == sum(kernel.route_counts.values())

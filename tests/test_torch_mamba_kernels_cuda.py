@@ -108,6 +108,55 @@ def test_ssm_scan_state_sizes_and_ragged_widths(n):
     assert err <= smoke.SSM_TOL["float32"], err
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,s,di,n", [
+    (2, 1, 128, 16),      # one step: one partial tile
+    (1, 17, 200, 16),     # one step past a float32 tile; ragged Di
+    (3, 1000, 77, 8),     # many tiles and ring turns; rows off 16 bytes
+    (2, 33, 4100, 4),     # one step past a bf16 tile; bf16 rows alternate
+    (1, 65, 130, 2),      # Di two channels past a block
+])
+def test_ssm_scan_tile_and_stage_edges(b, s, di, n, dtype):
+    """The staged kernel where its tiles, ring stages and 16-byte copies
+    end: S of 1, 17, 33, 65 and 1000 steps (tiles of 16 steps in float32,
+    32 in bfloat16; a ring of 4), Di off the 128-channel block and off a
+    16-byte row."""
+    _need_card()
+    from repro_torch.kernels.ssm_scan import kernel
+    smoke = _chip_smoke()
+    if dtype == "float32":
+        err, _ = smoke.check_ssm(b, s, di, n, dtype)
+        assert err <= smoke.SSM_TOL[dtype], err
+    else:
+        # the reference test's distributions give outputs past 16, where
+        # the early-cast oracle is a bf16 ulp (0.125) off: the kernel's
+        # own order is the yardstick
+        inputs = smoke.ssm_inputs(b, s, di, n, dtype)
+        excess = smoke.ssm_order_excess(kernel.ssm_scan_cuda(*inputs),
+                                        inputs)
+        assert excess <= 1, excess
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,s,di,n", [(2, 150, 300, 16), (1, 1000, 77, 8)])
+def test_ssm_scan_loads_only_entry_moves_the_scans_data(b, s, di, n, dtype):
+    """The measuring entry point reads x, dt, B and C and writes y where the
+    scan does: y = x + dt + B[..., 0] + C[..., 0] in float32, one cast, at
+    every step and channel (ragged S and Di included); no launch counted."""
+    _need_card()
+    import torch
+    from repro_torch.kernels.ssm_scan import kernel
+    smoke = _chip_smoke()
+    x, dt, B, C, A, D = smoke.ssm_inputs(b, s, di, n, dtype)
+    before = kernel.launch_count
+    out = kernel.ssm_scan_loads_cuda(x, dt, B, C, A, D)
+    want = (x.float() + dt.float() + B[..., :1].float()
+            + C[..., :1].float()).to(x.dtype)
+    torch.cuda.synchronize()
+    assert kernel.launch_count == before
+    assert torch.equal(out, want)
+
+
 def test_auto_backend_and_cache_layout():
     _need_card()
     from repro_torch.kernels.decode_attention import kernel as dk

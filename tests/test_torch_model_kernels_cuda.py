@@ -58,6 +58,8 @@ def test_flash_kernel_matches_plain(case):
     assert err <= smoke.FLASH_TOL[dtype], err
     if dtype == "bfloat16":
         assert excess <= 1, (excess, order_err)
+    elif d in kernel.TC_HEAD_DIMS:
+        assert order_err <= smoke.TF32X3_ORDER_TOL, order_err
     assert kernel.launch_count == before + 1
 
 
@@ -77,6 +79,28 @@ def test_flash_tensor_core_kernel_small_shapes(b, s, h, kh, causal, d):
                                                   "bfloat16")
     assert err <= smoke.FLASH_TOL["bfloat16"], err
     assert excess <= 1, (excess, order_err)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("b,s,h,kh,causal", [
+    (1, 77, 4, 2, True),        # one ragged tile
+    (2, 300, 6, 3, False),      # non-causal, ragged, several key tiles
+    (1, 256, 5, 1, True),       # H / Kh = 5
+    (1, 129, 8, 8, True),       # H / Kh = 1, Sq one row past a query tile
+    (3, 1, 2, 1, True),         # one position
+    (2, 100, 10, 2, False),     # H / Kh = 5, non-causal, Sq < one tile
+])
+def test_flash_tf32_kernel_small_shapes(b, s, h, kh, causal, d):
+    """The float32 3xTF32 tensor-core kernel at small ragged shapes: it is
+    the kernel that runs (check_flash reads the route count), within the
+    float32 tolerance of the plain version and within TF32X3_ORDER_TOL of
+    its rounding twin, element by element."""
+    _need_card()
+    smoke = _chip_smoke()
+    err, order_err, _, _ = smoke.check_flash(b, s, h, kh, d, causal,
+                                             "float32")
+    assert err <= smoke.FLASH_TOL["float32"], err
+    assert order_err <= smoke.TF32X3_ORDER_TOL, order_err
 
 
 @pytest.mark.parametrize("n,d", [(1, 32), (5, 1000), (2000, 576),
@@ -106,8 +130,10 @@ def test_auto_backend_launches_kernels_on_cuda_tensors():
     q = torch.randn(1, 40, 4, 32, device="cuda")
     k = torch.randn(1, 40, 2, 32, device="cuda")
     before = fk.launch_count
+    core = fk.route_counts["cuda_core"]
     fops.flash_attention(q, k, k)
     assert fk.launch_count == before + 1
+    assert fk.route_counts["cuda_core"] == core + 1      # float32, D = 32
     with pytest.raises(ValueError, match="head_dim"):
         fk.flash_attention_cuda(torch.randn(1, 8, 2, 48, device="cuda"),
                                 torch.randn(1, 8, 1, 48, device="cuda"),

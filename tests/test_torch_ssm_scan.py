@@ -114,3 +114,17 @@ def test_cuda_backend_refuses_cpu_tensors_and_bad_state_sizes():
         kernel.ssm_scan_cuda(x, dt, B, C, A, D)
     with pytest.raises(ValueError, match="ssm_scan backend"):
         ops.ssm_scan(x, dt, B, C, A, D, backend="pallas")
+
+
+def test_loads_only_entry_checks_like_the_scan():
+    """The measuring entry point (the kernel's copies alone) takes the
+    scan's inputs through the same checks: CPU tensors and an unbuilt N
+    are refused before anything is launched, and it counts no launch."""
+    before = kernel.launch_count
+    x, dt, B, C, A, D = map(torch.from_numpy, _inputs(1, 8, 4, 2))
+    with pytest.raises(ValueError, match="CUDA"):
+        kernel.ssm_scan_loads_cuda(x, dt, B, C, A, D)
+    x, dt, B, C, A, D = map(torch.from_numpy, _inputs(1, 8, 4, 3))
+    with pytest.raises(ValueError, match="state size N=3"):
+        kernel.ssm_scan_loads_cuda(x, dt, B, C, A, D)
+    assert kernel.launch_count == before
