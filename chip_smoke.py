@@ -10,8 +10,10 @@ Phases, each printed as it ends; any failure exits non-zero:
   1. card   — nvidia-smi's name and power limit;
   2. build  — nvcc builds the five kernels of csrc/ (channel_ring.cu,
               rmsnorm.cu, flash_attention.cu, ssm_scan.cu,
-              decode_attention.cu; sm_90a), all started together; build
-              time and ptxas registers and spills;
+              decode_attention.cu, with the header tf32x3.cuh; sm_90a),
+              all started together; build time, ptxas registers and
+              spills, and each decode split kernel's CTAs per SM and
+              dynamic shared memory;
   3. kernel — random tick traffic (drops, in-slot collisions, 2*D ticks,
               D=256, B=16) and adversarial traffic (D ticks from a ring
               holding cells below -1 and additive -0.0, expanded payloads,
@@ -86,10 +88,17 @@ Phases, each printed as it ends; any failure exits non-zero:
               [B, S, Kh, D] as a view (launch counts read around these two
               calls only), then the kernel against its plain version and
               SDPA at that shape and at qwen3-14b's (B=8 H=40 Kh=8 D=128
-              S=8192, full and ragged), float32 and bfloat16 (the bf16
-              cases also against decode_attention_kernel_order at the
-              kernel's split plan), and against the model's chunked kv_len
-              route (layers.chunked_attention);
+              S=8192, full and ragged), float32 (the 3xTF32 tensor-core
+              kernel) and bfloat16, each also against its twin at the
+              kernel's split plan, element by element (float32:
+              decode_attention_tf32x3_order; bfloat16:
+              decode_attention_kernel_order), the float32 cases against a
+              float64 oracle too, with
+              the split plan, the time per launch, the float32 kernel's
+              copies alone (decode_attention_loads_cuda, uncounted), the
+              bound, the plain version's and SDPA's times; and the entry
+              point against the model's chunked kv_len route
+              (layers.chunked_attention);
  13. mamba  — the full-width Jamba-1.5-Large Mamba mixer (d_model 8192,
               Di 16384, N 16, 403.6 M parameters, random weights from seed
               0) on x [2, 2048, 8192] float32: mamba_forward with
@@ -1209,10 +1218,12 @@ DECODE_CASES = (
     ("qwen3-14b-ragged", 8, 40, 8, 128, 8192, QWEN_LENS, "float32", 1e-5),
     ("qwen3-14b-ragged-bf16", 8, 40, 8, 128, 8192, QWEN_LENS, "bfloat16",
      8e-3))
-# bf16 decode kernel against decode_attention_kernel_order at the
-# kernel's split plan: about 4x the largest gap read on an H100 (2^-12 at
-# SmolLM's decode and qwen3-14b's ragged kv_len, 2^-13 at its full cache)
-DECODE_ORDER_TOL = 1e-3
+# each decode kernel against its twin at the kernel's split plan, element
+# by element, max abs. bfloat16 (decode_attention_kernel_order): about 4x
+# the largest gap read on an H100 (2^-12 at SmolLM's decode and qwen3-14b's
+# ragged kv_len, 2^-13 at its full cache). float32
+# (decode_attention_tf32x3_order): flash's limit for its 3xTF32 twin
+DECODE_ORDER_TOL = {"bfloat16": 1e-3, "float32": TF32X3_ORDER_TOL}
 MAMBA_B, MAMBA_S, MAMBA_DECODE_STEPS = 2, 2048, 64
 MAMBA_REL_TOL = 1e-4      # max abs diff / max abs output, float32
 
@@ -1360,7 +1371,7 @@ def phase_ssm_kernel(results: dict) -> None:
                           f"ms, bound {bound_ms!r} ms by {bound_by} "
                           f"({nbytes} bytes; pipes {pipes_ms!r} ms, "
                           f"exponentials on the SFU alone {exp_ms!r} ms; "
-                          f"{nbytes / ms / 1e9!r} GB/s); copies alone "
+                          f"{nbytes / ms / 1e9!r} TB/s); copies alone "
                           f"{loads_ms!r} ms")
         del inputs
         torch.cuda.empty_cache()
@@ -1381,42 +1392,62 @@ def decode_inputs(b, h, kh, d, s, lens, dtype, seed=0):
     return q, k, v, kv_len
 
 
+def decode_order(q, k, v, kv_len):
+    """The decode kernel's twin on these CUDA inputs, at the kernel's own
+    split plan and ring stage: decode_attention_kernel_order in bfloat16,
+    decode_attention_tf32x3_order in float32."""
+    import torch
+    from repro_torch.kernels.decode_attention import kernel, ref
+    _, chunk = kernel.plan(q, k)
+    tile = kernel.stage()
+    if q.dtype == torch.bfloat16:
+        return ref.decode_attention_kernel_order(q, k, v, kv_len,
+                                                 chunk=chunk, tile=tile)
+    return ref.decode_attention_tf32x3_order(q, k, v, kv_len, chunk=chunk,
+                                             tile=tile)
+
+
 def check_decode(b, h, kh, d, s, lens, dtype):
     """Kernel against plain version on one case. Returns (max abs err vs
-    decode_attention_ref, max abs err vs decode_attention_kernel_order at
-    the kernel's split plan (None in float32), inputs)."""
+    decode_attention_ref, max abs err vs the kernel's twin at its split
+    plan (decode_order), inputs)."""
     import torch
     from repro_torch.kernels.decode_attention import kernel, ref
     inputs = decode_inputs(b, h, kh, d, s, lens, dtype)
     out = kernel.decode_attention_cuda(*inputs)
     want = ref.decode_attention_ref(*inputs)
-    order = None
-    if inputs[0].dtype == torch.bfloat16:
-        sms = torch.cuda.get_device_properties(0).multi_processor_count
-        per_sm = kernel.bf16_ctas_per_sm(d, 0)
-        _, chunk = kernel.bf16_plan(s, b * kh, sms, per_sm)
-        order = ref.decode_attention_kernel_order(
-            *inputs, chunk=chunk, tile=kernel.BF16_TILE)
+    order = decode_order(*inputs)
     torch.cuda.synchronize()
     if out.dtype != inputs[0].dtype or out.shape != inputs[0].shape:
         raise AssertionError(f"decode output {out.dtype} {out.shape}")
     err = (out.float() - want.float()).abs().max().item()
-    order_err = (None if order is None
-                 else (out.float() - order.float()).abs().max().item())
+    order_err = (out.float() - order.float()).abs().max().item()
     return err, order_err, inputs
+
+
+def oracle_err(out, q, k, v, kv_len) -> float:
+    """Max abs error of ``out`` against decode_attention_ref in float64."""
+    from repro_torch.kernels.decode_attention import ref
+    want = ref.decode_attention_ref(q.double(), k.double(), v.double(),
+                                    kv_len)
+    return (out.double() - want).abs().max().item()
 
 
 def decode_bound(b, h, kh, d, s, lens, dtype):
     """(bound ms, what bounds it, flops, bytes): K and V read up to each
     sequence's kv_len, q read and out written, once, at 3.35 TB/s; 4*D
-    flops per (query head, visible key) at the float32 peak (the kernel's
-    arithmetic type)."""
+    flops per (query head, visible key), on the tensor cores: in float32
+    three TF32 products for each (3xTF32) at the TF32 peak, in bfloat16 at
+    the bf16 peak."""
     es = 4 if dtype == "float32" else 2
     keys = sum(min(n, s) for n in lens) if lens is not None else b * s
     nbytes = es * (2 * keys * kh * d + 2 * b * h * d) + 4 * b
     flops = 4 * d * (h // kh) * kh * keys
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS["float32"] * 1e3
+    if dtype == "float32":
+        t_ops = 3 * flops / PEAK_FLOPS["tf32"] * 1e3
+    else:
+        t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     if t_ops >= t_bytes:
         return t_ops, "operations", flops, nbytes
     return t_bytes, "bytes", flops, nbytes
@@ -1461,9 +1492,17 @@ def phase_decode_kernel(results: dict) -> None:
     for name, b, h, kh, d, s, lens, dtype, tol in DECODE_CASES:
         err, order_err, (q, k, v, kv_len) = check_decode(b, h, kh, d, s,
                                                          lens, dtype)
-        if order_err is not None and not order_err <= DECODE_ORDER_TOL:
-            raise AssertionError(f"decode {name}: kernel vs kernel order "
-                                 f"{order_err} > {DECODE_ORDER_TOL}")
+        order_tol = DECODE_ORDER_TOL[dtype]
+        if not order_err <= order_tol:
+            raise AssertionError(f"decode {name}: kernel vs its twin "
+                                 f"{order_err} > {order_tol}")
+        if not err <= tol:
+            raise AssertionError(f"decode {name}: kernel vs plain {err} > "
+                                 f"{tol}")
+        splits, chunk = kernel.plan(q, k)
+        plan = {"splits": splits, "chunk": chunk,
+                "tile": kernel.stage(),
+                "ctas_per_sm": kernel.ctas_per_sm(q.dtype, d, h // kh, 0)}
         valid = (torch.arange(s, device="cuda")[None, :]
                  < kv_len[:, None].long())
         sdpa = F.scaled_dot_product_attention(
@@ -1471,13 +1510,20 @@ def phase_decode_kernel(results: dict) -> None:
             enable_gqa=True)[:, :, 0]
         want = ref.decode_attention_ref(q, k, v, kv_len)
         sdpa_err = (sdpa.float() - want.float()).abs().max().item()
-        if not err <= tol:
-            raise AssertionError(f"decode {name}: kernel vs plain {err} > "
-                                 f"{tol}")
+        err64 = None
+        if dtype == "float32":
+            err64 = oracle_err(kernel.decode_attention_cuda(q, k, v, kv_len),
+                               q, k, v, kv_len)
         bound_ms, bound_by, flops, nbytes = decode_bound(b, h, kh, d, s,
                                                          lens, dtype)
         ms = device_ms(cycling(kernel.decode_attention_cuda,
                                (q, k, v, kv_len), nbytes), reps=20, rounds=5)
+        # the memory path's share: the float32 kernel's copies alone
+        loads_ms = None
+        if dtype == "float32":
+            loads_ms = device_ms(cycling(kernel.decode_attention_loads_cuda,
+                                         (q, k, v, kv_len), nbytes),
+                                 reps=20, rounds=5)
         plain_ms = device_ms(cycling(ref.decode_attention_ref,
                                      (q, k, v, kv_len), nbytes),
                              reps=5, rounds=3)
@@ -1488,22 +1534,25 @@ def phase_decode_kernel(results: dict) -> None:
         cases.append({"case": name, "shape": [b, h, kh, d, s],
                       "kv_len": list(lens) if lens else None,
                       "dtype": dtype, "max_abs_err": err, "tol": tol,
-                      "order_err": order_err,
-                      "order_tol": DECODE_ORDER_TOL if order_err is not None
-                      else None,
-                      "sdpa_vs_plain": sdpa_err, "ms": ms,
+                      "order_err": order_err, "order_tol": order_tol,
+                      "oracle_err": err64, "sdpa_vs_plain": sdpa_err,
+                      "ms": ms, "loads_only_ms": loads_ms,
                       "plain_ms": plain_ms, "library_ms": library_ms,
                       "bound_ms": bound_ms, "bound_by": bound_by,
-                      "flops": flops, "bytes": nbytes})
+                      "bytes_bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                      "flops": flops, "bytes": nbytes, "plan": plan,
+                      "kernel": ("decode_tf32_kernel" if dtype == "float32"
+                                 else "decode_bf16_kernel")})
         log("decode kernel", f"{name} B={b} H={h} Kh={kh} D={d} S={s} "
-                             f"{dtype}: max abs err {err!r} (tol {tol}; "
-                             f"sdpa vs plain {sdpa_err!r}; vs kernel order "
-                             f"{order_err!r}, tol {DECODE_ORDER_TOL}), "
-                             f"kernel {ms!r} "
-                             f"ms ({nbytes / ms / 1e9!r} GB/s), plain "
-                             f"{plain_ms!r} ms, sdpa {library_ms!r} ms, "
-                             f"bound {bound_ms!r} ms by {bound_by} "
-                             f"({nbytes} bytes)")
+                             f"{dtype}: plan {plan}, max abs err {err!r} "
+                             f"(tol {tol}; sdpa vs plain {sdpa_err!r}; vs "
+                             f"its twin {order_err!r}, tol {order_tol}; vs "
+                             f"a float64 oracle {err64!r}), kernel {ms!r} "
+                             f"ms ({nbytes / ms / 1e9!r} TB/s), copies "
+                             f"alone {loads_ms!r} ms, plain {plain_ms!r} "
+                             f"ms, sdpa {library_ms!r} ms, bound "
+                             f"{bound_ms!r} ms by {bound_by} ({nbytes} "
+                             f"bytes)")
         del q, k, v, kv_len, valid, sdpa, want
         torch.cuda.empty_cache()
     results["decode_attention"] = cases
@@ -1700,6 +1749,8 @@ def kernel_entries(results: dict) -> list:
         "bound_ms": dec["bound_ms"],
         "bound_by": dec["bound_by"],
         "library_ms": dec["library_ms"],
+        "kernel": dec["kernel"],
+        "loads_only_ms": dec["loads_only_ms"],
         "ms_bf16": dec16["ms"],
         "library_ms_bf16": dec16["library_ms"],
         "bound_ms_bf16": dec16["bound_ms"],
@@ -1741,9 +1792,17 @@ def main() -> int:
                  "static memory only): "
                  + ", ".join(f"D={d} {fk.tc_plan(d).smem_bytes} B"
                              for d in fk.TC_HEAD_DIMS)
-                 + "; decode_bf16_kernel CTAs per SM (occupancy "
-                 "calculator): "
-                 + ", ".join(f"D={d} {dk.bf16_ctas_per_sm(d, 0)}"
+                 + f"; decode split kernels ({dk.stage()} keys a ring "
+                 "stage; occupancy calculator's CTAs per SM, dynamic "
+                 "shared memory): "
+                 + "; ".join(f"{name} D={d} {dk.ctas_per_sm(dt, d, g, 0)} "
+                             f"CTAs {dk.smem_bytes(dt, d)} B"
+                             for name, dt, g in (
+                                 ("decode_tf32_kernel G<=8", torch.float32,
+                                  8),
+                                 ("decode_tf32_kernel G>8", torch.float32,
+                                  16),
+                                 ("decode_bf16_kernel", torch.bfloat16, 16))
                              for d in dk.HEAD_DIMS))
 
     results: dict = {}

@@ -4,9 +4,10 @@ interface and load it with ctypes.
 The library is compiled with ``nvcc`` for ``sm_90a`` at first use, from the
 source in the checkout alone, into ``build/kernels/`` at the root of the
 checkout (``.gitignore`` lists it; ``REPRO_TORCH_BUILD_DIR`` overrides the
-place). Its file name carries a hash of the source and the flags, so an
-edited source is rebuilt and an unchanged one is loaded as it is. A failed
-build raises: nothing falls back to the plain PyTorch version.
+place). Its file name carries a hash of the source, the headers of
+``csrc/`` and the flags, so an edited source or header is rebuilt and an
+unchanged one is loaded as it is. A failed build raises: nothing falls
+back to the plain PyTorch version.
 """
 from __future__ import annotations
 
@@ -51,10 +52,15 @@ def _nvcc() -> str:
 
 
 def _target(name: str):
+    """(source, library): the library's name carries a hash of the source,
+    of every header of csrc/ (a source may include any of them) and of the
+    flags."""
     source = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(source.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return source, build_dir() / f"{name}-{digest}.so"
+    h = hashlib.sha256(source.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return source, build_dir() / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def _start(name: str):

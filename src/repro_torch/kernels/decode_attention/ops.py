@@ -5,8 +5,10 @@ The entry point of the kernel, as the reference's
 calls it (the models decode through ``layers.chunked_attention`` with a
 ``kv_len``, the reference's route). It picks the backend by the rule of
 ``kernels/_dispatch.py`` (``"auto"``: the CUDA kernel for CUDA tensors,
-the plain version for CPU tensors; no fallback). The reference's ``bs``
-knob has no counterpart: the kernel takes any S.
+the plain version for CPU tensors; no fallback). On the card float32
+runs ``decode_tf32_kernel`` (3xTF32) and bfloat16 ``decode_bf16_kernel``,
+both on the tensor cores (kernel.py). The reference's ``bs`` knob has no
+counterpart: the kernels take any S.
 
 k and v may be views with any strides over their first three dims, so the
 model's cache ``[B, S, Kh, D]`` is passed as ``cache.transpose(1, 2)``

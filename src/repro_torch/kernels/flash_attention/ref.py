@@ -123,8 +123,9 @@ def fused_step(t: torch.Tensor, prods: torch.Tensor, rounding: str = "rz",
     return round_to_f32(terms.sum(dim=-1), rounding)
 
 
-def _mma(eq: str, a: torch.Tensor, a_dim: int, b: torch.Tensor, b_dim: int,
-         c: torch.Tensor, passes: int, rounding: str) -> torch.Tensor:
+def mma_tf32x3(eq: str, a: torch.Tensor, a_dim: int, b: torch.Tensor,
+               b_dim: int, c: torch.Tensor, passes: int,
+               rounding: str) -> torch.Tensor:
     """c plus the einsum ``eq`` of a and b, which sums a's axis ``a_dim``
     against b's ``b_dim``, in 8-wide blocks of that axis as the kernel's
     m16n8k8 products run. Per block, from a zeroed float32 temporary t:
@@ -155,8 +156,9 @@ def attention_tf32x3_order(q: torch.Tensor, k: torch.Tensor,
     a_lo b_hi + a_hi b_lo + a_hi b_hi, each product step rounded once
     (``rounding``: "rz" as the tensor cores round, ``fused_step``, or "rn",
     to nearest) into a per-block temporary added to the sum in float32
-    (``_mma``); S from zero per key tile, O carried across tiles; an online
-    softmax in base 2 over key tiles of ``block_k``; acc / max(l, 1e-30).
+    (``mma_tf32x3``); S from zero per key tile, O carried across tiles; an
+    online softmax in base 2 over key tiles of ``block_k``; acc / max(l,
+    1e-30).
     ``passes=1`` keeps a_hi b_hi alone: one TF32 pass, which the float32
     tolerance does not admit. Same shapes as ``attention_ref``; float32.
     What it does not model: the kernel's exponentials (ex2.approx, within
@@ -175,8 +177,8 @@ def attention_tf32x3_order(q: torch.Tensor, k: torch.Tensor,
         kt = k[:, k0:k0 + block_k].float()
         vt = v[:, k0:k0 + block_k].float()
         s0 = torch.zeros((b, kh, h // kh, sq, kt.shape[1]), device=q.device)
-        s = _mma("bqkgd,btkd->bkgqt", qg, 4, kt, 3, s0, passes,
-                 rounding) * scale_log2
+        s = mma_tf32x3("bqkgd,btkd->bkgqt", qg, 4, kt, 3, s0, passes,
+                       rounding) * scale_log2
         if causal:
             cols = torch.arange(k0, k0 + kt.shape[1], device=q.device)
             s = s.masked_fill(cols[None, :] > rows, float("-inf"))
@@ -186,8 +188,8 @@ def attention_tf32x3_order(q: torch.Tensor, k: torch.Tensor,
         corr = torch.exp2(m - m_use)
         p = torch.exp2(s - m_use[..., None])
         l = l * corr + p.sum(dim=-1)
-        acc = _mma("bkgqt,btkd->bkgqd", p, 4, vt, 1, acc * corr[..., None],
-                   passes, rounding)
+        acc = mma_tf32x3("bkgqt,btkd->bkgqd", p, 4, vt, 1,
+                         acc * corr[..., None], passes, rounding)
         m = m_new
     out = acc / torch.clamp(l, min=1e-30)[..., None]
     return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, d)

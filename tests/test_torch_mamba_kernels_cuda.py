@@ -53,48 +53,86 @@ def test_decode_kernel_matches_plain(case):
     before = kernel.launch_count
     err, order_err, _ = smoke.check_decode(b, h, kh, d, s, lens, dtype)
     assert err <= tol, err
-    if dtype == "bfloat16":
-        assert order_err <= smoke.DECODE_ORDER_TOL, order_err
+    assert order_err <= smoke.DECODE_ORDER_TOL[dtype], order_err
     assert kernel.launch_count == before + 1
 
 
-@pytest.mark.parametrize("d", [16, 32, 64, 128])
-@pytest.mark.parametrize("b,h,kh,s,lens", [
-    (2, 3, 1, 200, (1, 200)),         # G = 3, ragged tiles
-    (1, 40, 8, 333, (333,)),          # G = 5
-    (3, 8, 1, 1000, (64, 999, 1000)), # G = 8, many splits
-    (2, 16, 1, 70, (0, 70)),          # G = 16, kv_len 0 gives NaN
-])
-def test_decode_tensor_core_kernel_small_shapes(b, h, kh, s, lens, d):
-    """The bf16 tensor-core split kernel at every head dim, against both
-    plain versions (kv_len 0: NaN in exactly those rows, as both give)."""
-    _need_card()
-    from repro_torch.kernels.decode_attention import kernel, ref
+def _held_to_both_plain_versions(q, k, v, kv_len, out):
+    """out against decode_attention_ref and the kernel's twin at its split
+    plan: NaN in exactly the rows whose kv_len is 0, finite elsewhere and
+    within the dtype's tolerances (2e-2 / DECODE_ORDER_TOL in bfloat16;
+    5e-6 / TF32X3_ORDER_TOL in float32)."""
+    from repro_torch.kernels.decode_attention import ref
     smoke = _chip_smoke()
-    q, k, v, kv_len = smoke.decode_inputs(b, h, kh, d, s, lens, "bfloat16")
-    out = kernel.decode_attention_cuda(q, k, v, kv_len)
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    per_sm = kernel.bf16_ctas_per_sm(d, 0)
-    _, chunk = kernel.bf16_plan(s, b * kh, sms, per_sm)
-    order = ref.decode_attention_kernel_order(q, k, v, kv_len, chunk=chunk)
+    dtype = str(q.dtype).split(".")[1]
+    order = smoke.decode_order(q, k, v, kv_len)
     want = ref.decode_attention_ref(q, k, v, kv_len)
     live = kv_len.long() > 0
     assert torch.isnan(out[~live]).all()
     assert torch.isfinite(out[live]).all()
     assert torch.equal(torch.isnan(out), torch.isnan(want))
     assert torch.equal(torch.isnan(out), torch.isnan(order))
-    assert (out[live].float() - want[live].float()).abs().max() <= 2e-2
+    tol = 2e-2 if dtype == "bfloat16" else 5e-6
+    assert (out[live].float() - want[live].float()).abs().max() <= tol
     assert (out[live].float() - order[live].float()).abs().max() <= \
-        smoke.DECODE_ORDER_TOL
+        smoke.DECODE_ORDER_TOL[dtype]
 
 
-def test_decode_bf16_refuses_unaligned_rows():
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("b,h,kh,s,lens", [
+    (2, 2, 2, 90, (5, 90)),           # G = 1, kv_len below one chunk
+    (2, 3, 1, 200, (1, 200)),         # G = 3, ragged tiles
+    (1, 40, 8, 333, (333,)),          # G = 5
+    (3, 8, 1, 1000, (64, 999, 1000)), # G = 8, many splits
+    (2, 16, 1, 70, (0, 70)),          # G = 16, kv_len 0 gives NaN
+])
+def test_decode_tensor_core_kernel_small_shapes(b, h, kh, s, lens, d,
+                                                dtype):
+    """Both tensor-core split kernels (float32 in 3xTF32, bf16) at every
+    head dim, where stages, splits and kv_len end raggedly, against both
+    plain versions (kv_len 0: NaN in exactly those rows, as both give)."""
     _need_card()
     from repro_torch.kernels.decode_attention import kernel
-    q = torch.randn(1, 4, 64, device="cuda", dtype=torch.bfloat16)
-    k = torch.randn(1, 1, 40, 68, device="cuda", dtype=torch.bfloat16)
+    smoke = _chip_smoke()
+    q, k, v, kv_len = smoke.decode_inputs(b, h, kh, d, s, lens, dtype)
+    out = kernel.decode_attention_cuda(q, k, v, kv_len)
+    _held_to_both_plain_versions(q, k, v, kv_len, out)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+def test_decode_kernel_reads_strided_cache_views(d, dtype):
+    """k and v as views: the model cache's [B, S, Kh, D] through a
+    transpose, and keys sliced out of a longer cache, each held to both
+    plain versions."""
+    _need_card()
+    from repro_torch.kernels.decode_attention import kernel
+    smoke = _chip_smoke()
+    b, h, kh, s = 3, 12, 4, 300
+    q, k, v, kv_len = smoke.decode_inputs(b, h, kh, d, s + 60, (7, 150, 300),
+                                          dtype)
+    views = (tuple(t.transpose(1, 2).contiguous().transpose(1, 2)[:, :, :s]
+                   for t in (k, v)),
+             (k[:, :, 40:40 + s], v[:, :, 10:10 + s]))
+    for kv in views:
+        out = kernel.decode_attention_cuda(q, *kv, kv_len)
+        _held_to_both_plain_versions(q, *kv, kv_len, out)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_bf16_refuses_unaligned_rows(dtype):
+    """Rows the 16-byte copies cannot take: strides off whole 16 bytes
+    (bf16 rows of 68 elements) or a start off a 16-byte boundary (float32
+    rows one element in). (The name is kept from when only the bf16
+    kernel copied 16 bytes at a time.)"""
+    _need_card()
+    from repro_torch.kernels.decode_attention import kernel
+    q = torch.randn(1, 4, 64, device="cuda", dtype=dtype)
+    k = torch.randn(1, 1, 40, 68, device="cuda", dtype=dtype)
+    rows = k[..., :64] if dtype == torch.bfloat16 else k[..., 1:65]
     with pytest.raises(ValueError, match="16-byte"):
-        kernel.decode_attention_cuda(q, k[..., :64], k[..., :64],
+        kernel.decode_attention_cuda(q, rows, rows,
                                      torch.tensor([40], device="cuda"))
 
 
@@ -155,6 +193,25 @@ def test_ssm_scan_loads_only_entry_moves_the_scans_data(b, s, di, n, dtype):
     torch.cuda.synchronize()
     assert kernel.launch_count == before
     assert torch.equal(out, want)
+
+
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+def test_decode_loads_only_entry_runs_uncounted(d):
+    """The float32 kernel's measuring entry point (its copies, barriers
+    and partials alone) launches at every head dim on ragged kv_len and
+    strided views, gives finite values of the output's shape, and counts
+    no launch."""
+    _need_card()
+    from repro_torch.kernels.decode_attention import kernel
+    smoke = _chip_smoke()
+    q, k, v, kv_len = smoke.decode_inputs(2, 10, 2, d, 700, (3, 700),
+                                          "float32")
+    kc = k.transpose(1, 2).contiguous().transpose(1, 2)
+    before = kernel.launch_count
+    out = kernel.decode_attention_loads_cuda(q, kc, v, kv_len)
+    torch.cuda.synchronize()
+    assert kernel.launch_count == before
+    assert out.shape == q.shape and torch.isfinite(out).all()
 
 
 def test_auto_backend_and_cache_layout():

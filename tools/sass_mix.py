@@ -5,7 +5,8 @@ and prints, per kernel whose name matches the arguments, the count of
 every opcode in its SASS. Needs the CUDA toolkit (cuobjdump), so it runs
 on the machine with the card:
 
-    python3 tools/sass_mix.py ssm_scan_kernel flash_tf32_kernel
+    python3 tools/sass_mix.py ssm_scan_kernel flash_tf32_kernel \
+        decode_tf32_kernel
 
 An opcode's count is per compiled instruction, not per execution: a
 loop's body counts once (the scan's and flash's inner loops are
@@ -23,7 +24,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
 
 from repro_torch.kernels import _build  # noqa: E402
 
-SOURCES = ("flash_attention", "ssm_scan")
+SOURCES = ("flash_attention", "ssm_scan", "decode_attention")
 
 
 def cuobjdump() -> str:
