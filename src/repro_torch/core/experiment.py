@@ -15,6 +15,14 @@ ONE batched dispatch of B lanes (port of ``repro.core.experiment``).
 Grid points are independent lanes: a lane's result does not depend on the
 other lanes (its arrival draws come from its own generator), so a batched
 grid equals the same points run one by one, bit for bit.
+
+The analytic baselines (epaxos / rabia) have no tick loop; they are looped
+on the host behind the same API, and touch no device.
+
+``dispatch_sweep`` returns a ``PendingSweep`` as the reference's does, but
+runs the grid before it returns: the host loop over ticks is what drives
+the device, so there is nothing left to overlap with a later dispatch.
+``collect()`` only hands the rows over.
 """
 from __future__ import annotations
 
@@ -31,6 +39,11 @@ from repro_torch import scenarios as sc
 from repro_torch import workloads as wlc
 from repro_torch.configs.smr import SMRConfig
 from repro_torch.core import harness, netsim
+from repro_torch.core.epaxos import run_epaxos_model
+from repro_torch.core.rabia import run_rabia_model
+
+ANALYTIC_PROTOCOLS = ("epaxos", "rabia")
+_ANALYTIC_MODELS = {"epaxos": run_epaxos_model, "rabia": run_rabia_model}
 
 _TIMING: Dict[str, Dict[str, float]] = {}
 
@@ -91,16 +104,40 @@ def _lower(cfg: SMRConfig, spec: SweepSpec, device: torch.device):
     return pts, cfg, mode, env_b, rate_b, seed_b
 
 
-def run_sweep(protocol: str, cfg: SMRConfig, spec: SweepSpec, device=None,
-              draws=None) -> List[Dict]:
-    """Run the whole grid as one batched dispatch; returns one result dict
-    per point, in ``spec.points()`` order, with the keys of the
-    reference's ``PendingSweep.collect`` for this protocol. ``device``:
-    None = CUDA (raises without one), or e.g. "cpu". ``draws``: optional
-    [B, T, n] arrival table replacing the per-lane torch Poisson draws."""
+class PendingSweep:
+    """A dispatched sweep. In the port the grid has already run when
+    ``dispatch_sweep`` returns (see the module docstring); ``collect()``
+    returns its rows."""
+
+    def __init__(self, protocol: str, results: List[Dict]):
+        self.protocol = protocol
+        self._results = results
+
+    def collect(self) -> List[Dict]:
+        return self._results
+
+
+# per-point metric arrays every scan protocol returns
+_ROW_ARRAYS = ("timeline", "origin_median_ms", "origin_p99_ms",
+               "origin_timeline", "origin_lat_ms_timeline")
+
+
+def _analytic_rows(protocol: str, cfg: SMRConfig, spec: SweepSpec,
+                   wl_names: List[str]) -> List[Dict]:
+    model = _ANALYTIC_MODELS[protocol]
+    rows = []
+    for rate, seed, fi, wi in spec.points():
+        r = model(cfg, rate, spec.scenarios[fi], workload=spec.workloads[wi])
+        r["seed"] = seed
+        r["workload"] = wl_names[wi]
+        rows.append(r)
+    return rows
+
+
+def _scan_rows(protocol: str, cfg: SMRConfig, spec: SweepSpec,
+               wl_names: List[str], device, draws) -> List[Dict]:
     harness.check_supported(protocol, cfg)
     dev = _device.resolve(device)
-    wl_names = [wlc.as_workload(w).name for w in spec.workloads]
     t0 = time.perf_counter()
     pts, cfg, mode, env_b, rate_b, seed_b = _lower(cfg, spec, dev)
     out = harness.sim_point(protocol, cfg, env_b, rate_b.tolist(), seed_b,
@@ -117,12 +154,40 @@ def run_sweep(protocol: str, cfg: SMRConfig, spec: SweepSpec, device=None,
                    "median_ms": float(out["median_ms"][i]),
                    "p99_ms": float(out["p99_ms"][i]),
                    "committed": float(out["committed"][i])}
-        for k in ("timeline", "origin_median_ms", "origin_p99_ms",
-                  "origin_timeline", "origin_lat_ms_timeline"):
+        for k in _ROW_ARRAYS:
             r[k] = out[k][i]
-        r["async_frac"] = float(out["async_frac"][i])
-        r["views"] = int(out["views"][i])
-        r["cvc_all"] = out["cvc_all"][i]
-        r["commit_key"] = out["commit_key"][i]
+        if protocol == "mandator-sporades":
+            r["async_frac"] = float(out["async_frac"][i])
+            r["views"] = int(out["views"][i])
+            r["cvc_all"] = out["cvc_all"][i]
+            r["commit_key"] = out["commit_key"][i]
         results.append(r)
     return results
+
+
+def dispatch_sweep(protocol: str, cfg: SMRConfig, spec: SweepSpec,
+                   device=None, draws=None) -> PendingSweep:
+    """Run the grid and return it as a ``PendingSweep``. Scan protocols
+    (``harness.PROTOCOLS``) run as one batched dispatch of B lanes on
+    ``device`` (None = CUDA, raises without one; or e.g. "cpu");
+    ``draws`` is an optional [B, T, n] arrival table replacing their
+    per-lane torch Poisson draws. The analytic baselines
+    (``ANALYTIC_PROTOCOLS``) loop on the host and take neither."""
+    wl_names = [wlc.as_workload(w).name for w in spec.workloads]
+    if protocol in ANALYTIC_PROTOCOLS:
+        if draws is not None:
+            raise ValueError(f"{protocol} is an analytic model and draws no "
+                             "arrivals")
+        return PendingSweep(protocol,
+                            _analytic_rows(protocol, cfg, spec, wl_names))
+    return PendingSweep(protocol, _scan_rows(protocol, cfg, spec, wl_names,
+                                             device, draws))
+
+
+def run_sweep(protocol: str, cfg: SMRConfig, spec: SweepSpec, device=None,
+              draws=None) -> List[Dict]:
+    """Run the whole grid; returns one result dict per point, in
+    ``spec.points()`` order, with the keys of the reference's
+    ``PendingSweep.collect`` for this protocol. See ``dispatch_sweep`` for
+    ``device`` and ``draws``."""
+    return dispatch_sweep(protocol, cfg, spec, device, draws).collect()

@@ -1,15 +1,23 @@
-"""SMR simulation harness: drives mandator-sporades over the WAN sim and
-produces the paper's metrics (throughput, median/p99 execution latency,
-timelines). Port of ``repro.core.harness`` for the main path.
+"""SMR simulation harness: drives a protocol over the WAN sim and produces
+the paper's metrics (throughput, median/p99 execution latency, timelines).
+Port of ``repro.core.harness`` for the scan protocols:
+
+  mandator-sporades  — Alg 1 + Algs 2/3 (full tick-level state machines)
+  mandator-paxos     — Alg 1 + Multi-Paxos ordering the vector clock
+  multipaxos         — monolithic Multi-Paxos (batches inside consensus)
+  mandator           — dissemination layer alone (completion throughput)
+
+The analytic baselines (epaxos, rabia) have no tick loop; the sweep engine
+(core/experiment.py) runs them on the host.
 
 ``sim_point`` runs the tick loop for every lane of a batched env at once —
 a Python loop over ticks whose per-tick outputs land in preallocated
 ``[B, T, ...]`` tensors — then extracts the metrics on the device
 (searchsorted commit reconstruction, weighted quantiles, timelines).
 
-The port runs ``protocol="mandator-sporades"`` with the trivial §5.2
-workload and tracing/monitoring off; anything else raises
-``NotImplementedError`` naming the ROADMAP item that brings it.
+The port runs the trivial §5.2 workload with tracing/monitoring off;
+anything else raises ``NotImplementedError`` naming the ROADMAP item that
+brings it.
 """
 from __future__ import annotations
 
@@ -20,27 +28,16 @@ import torch
 
 from repro_torch import device as _device
 from repro_torch.configs.smr import SMRConfig
-from repro_torch.core import mandator, netsim, sporades
+from repro_torch.core import mandator, netsim, paxos, sporades
 from repro_torch.core import workload as wlmod
 from repro_torch.workloads.compile import TRIVIAL_MODE, WorkloadMode
 
-PROTOCOLS = ("mandator-sporades",)
+PROTOCOLS = ("mandator-sporades", "mandator-paxos", "multipaxos",
+             "mandator")
 
 
-def check_supported(protocol: str, cfg: SMRConfig,
-                    mode: WorkloadMode = TRIVIAL_MODE) -> None:
-    """Raise NotImplementedError for what this port does not run yet."""
-    if protocol not in PROTOCOLS:
-        item = ("Queue A item 12" if protocol in ("epaxos", "rabia")
-                else "Queue A item 10")
-        raise NotImplementedError(
-            f"protocol {protocol!r} is not ported yet (ROADMAP {item}); "
-            f"the port runs {PROTOCOLS}")
-    if not mode.trivial or mode.closed:
-        raise NotImplementedError(
-            "windowed and closed-loop workloads are not ported yet "
-            "(ROADMAP Queue A item 11); the port runs the trivial §5.2 "
-            "Poisson workload")
+def check_observability_off(cfg: SMRConfig) -> None:
+    """Raise NotImplementedError unless tracing and monitoring are off."""
     if cfg.trace_level != "off" or cfg.monitor_level != "off":
         raise NotImplementedError(
             "the flight recorder and health monitor are not ported yet "
@@ -48,45 +45,90 @@ def check_supported(protocol: str, cfg: SMRConfig,
             "monitor_level='off'")
 
 
+def check_supported(protocol: str, cfg: SMRConfig,
+                    mode: WorkloadMode = TRIVIAL_MODE) -> None:
+    """Raise for what this port does not run yet: ValueError for a name
+    that is no scan protocol, NotImplementedError for a non-trivial
+    workload or tracing/monitoring on."""
+    if protocol not in PROTOCOLS:
+        raise ValueError(f"{protocol!r} is not a scan protocol; the "
+                         f"harness runs {PROTOCOLS}")
+    if not mode.trivial or mode.closed:
+        raise NotImplementedError(
+            "windowed and closed-loop workloads are not ported yet "
+            "(ROADMAP Queue A item 11); the port runs the trivial §5.2 "
+            "Poisson workload")
+    check_observability_off(cfg)
+
+
 def init_carry(cfg: SMRConfig, n_ticks: int, batch: int,
-               device: torch.device) -> Dict:
-    """The scan carry {"m": mandator state, "s": sporades state}."""
-    return {"m": mandator.init_state(cfg, n_ticks, batch, device),
-            "s": sporades.init_state(cfg, n_ticks, batch, device)}
+               device: torch.device,
+               protocol: str = "mandator-sporades") -> Dict:
+    """The scan carry of ``protocol``: {"m": mandator state} for the
+    protocols built on Mandator, plus "s" (sporades) or "p" (paxos in
+    mandator mode); {"p": paxos state} for multipaxos."""
+    carry = {}
+    if protocol != "multipaxos":
+        carry["m"] = mandator.init_state(cfg, n_ticks, batch, device)
+    if protocol == "mandator-sporades":
+        carry["s"] = sporades.init_state(cfg, n_ticks, batch, device)
+    elif protocol in ("mandator-paxos", "multipaxos"):
+        carry["p"] = paxos.init_state(
+            cfg, n_ticks, protocol == "mandator-paxos", batch, device)
+    return carry
 
 
 def step(carry: Dict, t: int, draws: torch.Tensor, env: Dict,
-         cfg: SMRConfig) -> Dict:
-    """One tick of the composed protocol: Mandator then Sporades, which
-    orders Mandator's lastCompletedRounds."""
-    m = mandator.tick(carry["m"], t, draws[:, t], env, cfg)
-    s = sporades.tick(carry["s"], t, env, cfg,
-                      mandator.get_client_requests(m))
-    return {"m": m, "s": s}
+         cfg: SMRConfig, protocol: str = "mandator-sporades") -> Dict:
+    """One tick of ``protocol``. Mandator runs first where it is composed;
+    Sporades or Paxos then orders its lastCompletedRounds. Arrivals come
+    from row t of the draw table, into Mandator or (multipaxos) Paxos."""
+    carry = dict(carry)
+    if "m" in carry:
+        carry["m"] = mandator.tick(carry["m"], t, draws[:, t], env, cfg)
+        lcr = mandator.get_client_requests(carry["m"])
+    if protocol == "mandator-sporades":
+        carry["s"] = sporades.tick(carry["s"], t, env, cfg, lcr)
+    elif protocol == "mandator-paxos":
+        carry["p"] = paxos.tick(carry["p"], t, None, env, cfg, True, lcr=lcr)
+    elif protocol == "multipaxos":
+        carry["p"] = paxos.tick(carry["p"], t, draws[:, t], env, cfg, False)
+    return carry
 
 
-def _scan_body(cfg: SMRConfig, n_ticks: int, env: Dict, draws: torch.Tensor,
-               batch: int, device: torch.device):
+def _trace_leaves(protocol: str, n: int) -> Dict:
+    """The per-tick trace of ``protocol``: {name: (per-lane shape, dtype,
+    function of the carry)}. ``cvc`` is the cluster max committed VC."""
+    i32 = torch.int32
+    if protocol == "mandator":
+        return {"own_round": ((n,), i32, lambda c: c["m"]["own_round"])}
+    if protocol == "mandator-paxos":
+        return {"cvc": ((n,), i32, lambda c: c["p"]["cvc"].amax(dim=1))}
+    if protocol == "multipaxos":
+        return {"committed_slot": ((n,), i32,
+                                   lambda c: c["p"]["committed_slot"])}
+    return {"cvc": ((n,), i32, lambda c: c["s"]["cvc"].amax(dim=1)),
+            "cvc_all": ((n, n), i32, lambda c: c["s"]["cvc"]),
+            "commit_key": ((n,), i32, lambda c: c["s"]["commit_key"]),
+            "is_async": ((n,), torch.bool, lambda c: c["s"]["is_async"]),
+            "v_cur": ((n,), i32, lambda c: c["s"]["v_cur"])}
+
+
+def _scan_body(protocol: str, cfg: SMRConfig, n_ticks: int, env: Dict,
+               draws: torch.Tensor, batch: int, device: torch.device):
     """The tick loop. Returns (final carry, trace) with trace leaves
-    [B, T, ...]: cvc (cluster max committed VC), cvc_all, commit_key,
-    is_async, v_cur."""
-    n = cfg.n_replicas
-    carry = init_carry(cfg, n_ticks, batch, device)
-
-    def buf(*shape, dtype=torch.int32):
-        return torch.empty((batch, n_ticks, *shape), dtype=dtype,
-                           device=device)
-
-    trace = {"cvc": buf(n), "cvc_all": buf(n, n), "commit_key": buf(n),
-             "is_async": buf(n, dtype=torch.bool), "v_cur": buf(n)}
+    [B, T, ...]: own_round (mandator), cvc (mandator-paxos), committed_slot
+    (multipaxos), or cvc, cvc_all, commit_key, is_async and v_cur
+    (mandator-sporades)."""
+    carry = init_carry(cfg, n_ticks, batch, device, protocol)
+    leaves = _trace_leaves(protocol, cfg.n_replicas)
+    trace = {k: torch.empty((batch, n_ticks, *shape), dtype=dtype,
+                            device=device)
+             for k, (shape, dtype, _) in leaves.items()}
     for t in range(n_ticks):
-        carry = step(carry, t, draws, env, cfg)
-        s = carry["s"]
-        trace["cvc"][:, t] = s["cvc"].amax(dim=1)
-        trace["cvc_all"][:, t] = s["cvc"]
-        trace["commit_key"][:, t] = s["commit_key"]
-        trace["is_async"][:, t] = s["is_async"]
-        trace["v_cur"][:, t] = s["v_cur"]
+        carry = step(carry, t, draws, env, cfg, protocol)
+        for k, (_, _, leaf) in leaves.items():
+            trace[k][:, t] = leaf(carry)
     return carry, trace
 
 
@@ -196,7 +238,9 @@ def sim_point(protocol: str, cfg: SMRConfig, env: Dict,
     netsim.stack_envs); rate_per_tick, seeds: per lane; draws: optional
     [B, T, n] arrival table (default: ``workload.draw_table`` from the
     seeds). ``cfg.delay_horizon_ticks`` must be resolved to an int.
-    Returns a dict of [B, ...] tensors."""
+    Returns a dict of [B, ...] tensors: the metrics of every protocol,
+    plus async_frac, views, cvc_all and commit_key for
+    mandator-sporades."""
     check_supported(protocol, cfg, mode)
     dev = _device.resolve(device)
     if not isinstance(cfg.delay_horizon_ticks, int):
@@ -213,13 +257,21 @@ def sim_point(protocol: str, cfg: SMRConfig, env: Dict,
         raise ValueError(f"draws must be [B, T, n] = "
                          f"{(batch, n_ticks, cfg.n_replicas)}, got "
                          f"{tuple(draws.shape)}")
-    st, trace = _scan_body(cfg, n_ticks, env, draws, batch, dev)
-    wl = st["m"]["wl"]
-    commit_t = _vc_commit_ticks(trace["cvc"], wl["batch_count"].shape[2])
+    st, trace = _scan_body(protocol, cfg, n_ticks, env, draws, batch, dev)
+    if protocol == "mandator":
+        # dissemination completion = "commit" for availability accounting
+        wl, cvc = st["m"]["wl"], trace["own_round"]
+    elif protocol == "multipaxos":
+        wl, cvc = st["p"]["wl"], trace["committed_slot"]
+    else:
+        # batch r commits once the committed VC reaches r (1-based rounds)
+        wl, cvc = st["m"]["wl"], trace["cvc"]
+    commit_t = _vc_commit_ticks(cvc, wl["batch_count"].shape[2])
     out = _batch_metrics(cfg, wl["batch_create_t"], wl["batch_arr_mean"],
                          wl["batch_count"], commit_t)
-    out["async_frac"] = trace["is_async"].float().flatten(1).mean(dim=1)
-    out["views"] = trace["v_cur"].flatten(1).amax(dim=1)
-    out["cvc_all"] = trace["cvc_all"]          # [B, ticks, n, n]
-    out["commit_key"] = trace["commit_key"]    # [B, ticks, n]
+    if protocol == "mandator-sporades":
+        out["async_frac"] = trace["is_async"].float().flatten(1).mean(dim=1)
+        out["views"] = trace["v_cur"].flatten(1).amax(dim=1)
+        out["cvc_all"] = trace["cvc_all"]          # [B, ticks, n, n]
+        out["commit_key"] = trace["commit_key"]    # [B, ticks, n]
     return out

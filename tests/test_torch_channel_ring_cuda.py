@@ -1,6 +1,7 @@
 """The fused CUDA channel-ring commit against its plain PyTorch path, bit
 for bit, on the card: random tick traffic (drops, in-slot collisions, 2*D
-ticks at D=256, B=16) through the sporades, mandator and additive layouts,
+ticks at D=256, B=16) through the sporades, mandator, paxos (plain and
+Mandator mode) and additive layouts,
 and adversarial traffic (a ring holding cells below -1 and additive -0.0,
 expanded payloads, most sends masked out). The layouts and the traffic are
 chip_smoke.py's own (``layouts``, ``random_sends``, ``adversarial_ring``),
@@ -29,7 +30,8 @@ def _chip_smoke():
     return mod
 
 
-@pytest.mark.parametrize("layout", ["sporades", "mandator", "additive"])
+@pytest.mark.parametrize("layout", ["sporades", "mandator", "paxos",
+                                    "mandator-paxos", "additive"])
 def test_kernel_matches_plain_bitwise(layout):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
@@ -55,7 +57,8 @@ def test_kernel_matches_plain_bitwise(layout):
     assert kernel.launch_count - before == 2 * D
 
 
-@pytest.mark.parametrize("layout", ["sporades", "mandator", "additive"])
+@pytest.mark.parametrize("layout", ["sporades", "mandator", "paxos",
+                                    "mandator-paxos", "additive"])
 def test_kernel_matches_plain_on_adversarial_traffic(layout):
     """Masked-out sends over cells below -1, additive cells holding -0.0
     and expanded payloads: the bits of every cell (the sign of a zero

@@ -40,16 +40,22 @@ def test_grid_matches_sequential_runs():
             np.testing.assert_array_equal(r[k], single[k], err_msg=k)
 
 
-def test_unported_paths_raise():
+@pytest.mark.parametrize("proto", ("mandator-sporades", "mandator-paxos",
+                                   "multipaxos", "mandator"))
+def test_unported_paths_raise(proto):
+    """Every scan protocol runs (see tests/test_torch_paxos.py,
+    tests/test_torch_mandator_alone.py); tracing, monitoring and
+    non-trivial workloads still raise, naming their ROADMAP items, and a
+    name that is no protocol raises ValueError."""
     spec = SweepSpec(rates=(10_000,))
-    for proto, item in (("multipaxos", "item 10"), ("epaxos", "item 12")):
-        with pytest.raises(NotImplementedError, match=item):
-            run_sweep(proto, CFG, spec, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        run_sweep("mandator-sporades", SMRConfig(trace_level="full"), spec,
-                  device="cpu")
+    for cfg in (SMRConfig(trace_level="full"),
+                SMRConfig(monitor_level="full")):
+        with pytest.raises(NotImplementedError, match="item 13"):
+            run_sweep(proto, cfg, spec, device="cpu")
     with pytest.raises(NotImplementedError, match="item 11"):
-        run_sweep("mandator-sporades", CFG,
+        run_sweep(proto, CFG,
                   SweepSpec(rates=(10_000,), workloads=(
                       Workload("half", (PoissonOpen(0.5),)),)),
                   device="cpu")
+    with pytest.raises(ValueError, match="not-a-protocol"):
+        run_sweep("not-a-protocol", CFG, spec, device="cpu")

@@ -67,7 +67,7 @@ def test_entry_points_default_to_cuda():
         pytest.skip("a CUDA device is present; nothing to refuse")
     from repro_torch.configs import get_config
     from repro_torch.configs.smr import SMRConfig
-    from repro_torch.core import mandator, netsim, sporades
+    from repro_torch.core import mandator, netsim, paxos, sporades
     from repro_torch.core.experiment import SweepSpec, run_sweep
     from repro_torch.launch.serve import serve
     from repro_torch.models import init_cache, init_params
@@ -76,6 +76,8 @@ def test_entry_points_default_to_cuda():
     for call in (
             lambda: run_sweep("mandator-sporades", cfg,
                               SweepSpec(rates=(1000,))),
+            lambda: run_sweep("multipaxos", cfg, SweepSpec(rates=(1000,))),
+            lambda: paxos.init_state(cfg, 100, True),
             lambda: netsim.build_env(cfg),
             lambda: mandator.init_state(cfg, 100),
             lambda: sporades.init_state(cfg, 100),

@@ -109,8 +109,9 @@ def _port_latencies(table, i):
                      scenarios=(library.get(NAMES[i], SIM_S),))
     _, cfg, _, env, _, _ = experiment._lower(
         SMRConfig(sim_seconds=SIM_S), spec, torch.device("cpu"))
-    st, trace = harness._scan_body(cfg, T, env, torch.from_numpy(table[None]),
-                                   1, torch.device("cpu"))
+    st, trace = harness._scan_body("mandator-sporades", cfg, T, env,
+                                   torch.from_numpy(table[None]), 1,
+                                   torch.device("cpu"))
     wl = st["m"]["wl"]
     commit_t = harness._vc_commit_ticks(trace["cvc"], T)
     ok = (torch.isfinite(commit_t) & (wl["batch_count"] > 0)
@@ -139,3 +140,10 @@ def test_metrics_within_stated_tolerance(runs, i):
     tl_r, tl_p = np.asarray(r["timeline"]), p["timeline"]
     np.testing.assert_allclose(tl_p, tl_r, rtol=0,
                                atol=1e-6 * float(np.max(tl_r)))
+
+
+def test_row_keys_equal_reference(runs):
+    """A mandator-sporades row carries exactly the reference's keys."""
+    _, ref, port = runs
+    for r, p in zip(ref, port):
+        assert set(r) == set(p), sorted(set(r) ^ set(p))
