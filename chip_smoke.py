@@ -143,7 +143,32 @@ Phases, each printed as it ends; any failure exits non-zero:
               kernels' error at most LOGITS_BF16_RATIO times the plain
               path's), and a profile of one forward (kernel launches per
               forward, flash's share of device time);
- 15. the card's line, the kernels line, then the result line.
+ 15. workloads — windowed and closed-loop workloads, the flight recorder
+              and the health monitor through the entry points: (a)
+              benchmarks/figures.py's workload matrix at its own 4 s: the
+              seven library workloads x {baseline, paper-ddos}, one 14-lane
+              grid per scan protocol (mandator-sporades, mandator-paxos and
+              mandator at 200k tx/s, multipaxos at 30k), with the
+              channel_ring_commit launches counted around each grid alone
+              and a profile of ticks 200-250 (ms/tick, launches/tick,
+              busy share);
+              every lane commits and no closed lane's in-flight high water
+              passes its cap; EPaxos at 8k and Rabia at 800 on the
+              baseline; (b) onoff-burst, region-skew, closed-loop and
+              skewed-closed x {baseline, paper-ddos} for 1 s from one numpy
+              arrival table and one epoch stream: kernel vs plain and card
+              vs CPU bit for bit (same_leaves and inflight_max); (c) the
+              robustness matrix (10 scenarios x 2 rates, three protocols;
+              cut to 2 s) with trace_level and monitor_level "full" against
+              the same grid with both off: metrics bit for bit, every
+              verdict clean but for the reference's own Mandator-Paxos
+              agreement counts on paper-ddos, region-outage, gray-wan and
+              flapping-link, which must equal KNOWN_VIOLATIONS exactly,
+              each batch's phase marks ordered and the rows' median and
+              p99 recomputed from the marks' commit - arrival,
+              a Chrome trace that validates, ms/tick on and off, and
+              launches/tick and busy share of ticks 100-150 on and off;
+ 16. the card's line, the kernels line, then the result line.
 
 It imports nothing of JAX and nothing of the JAX package. Float32 matrix
 products and convolutions run in full float32 (TF32 off).
@@ -460,44 +485,48 @@ def _clone(tree):
 
 
 def tick_profile(tag: str, protocol: str, rates, start: int,
-                 n_window: int):
-    """Where a tick's time goes at the Fig-6 shape: the 16-lane grid of
-    ``protocol`` at ``rates`` x FIG6_SEEDS is stepped to tick ``start``,
-    then ticks start .. start + n_window run twice from the same state,
-    once untraced (wall time, synchronized on both sides) and once under
-    torch.profiler. The device's busy share is the traced kernel time over
-    the untraced wall time of the same window. Returns the per-tick
-    numbers, or None where the profiler saw no device time."""
+                 n_window: int, cfg=None, spec=None):
+    """Where a tick's time goes: the grid of ``protocol`` (by default the
+    16-lane Fig-6 grid at ``rates`` x FIG6_SEEDS under SMRConfig(); else
+    ``spec`` under ``cfg``, any workload and telemetry level) is stepped
+    to tick ``start``, then ticks start .. start + n_window run twice from
+    the same state, once untraced (wall time, synchronized on both sides)
+    and once under torch.profiler. The device's busy share is the traced
+    kernel time over the untraced wall time of the same window. Returns
+    the per-tick numbers, or None where the profiler saw no device
+    time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs.smr import SMRConfig
-    from repro_torch.core import experiment, harness, workload
+    from repro_torch.core import experiment, harness, netsim
     from repro_torch.core.experiment import SweepSpec
 
     dev = torch.device("cuda")
-    spec = SweepSpec(rates=rates, seeds=FIG6_SEEDS)
-    _, cfg, _, env, rate_b, seeds = experiment._lower(SMRConfig(), spec, dev)
-    ticks = int(cfg.sim_seconds * 1000 / cfg.tick_ms)
-    draws = workload.draw_table(rate_b.tolist(), seeds, ticks,
-                                cfg.n_replicas, dev)
-    carry = harness.init_carry(cfg, ticks, len(seeds), dev, protocol)
+    spec = spec or SweepSpec(rates=rates, seeds=FIG6_SEEDS)
+    _, cfg, mode, env, rate_b, seeds = experiment._lower(
+        cfg or SMRConfig(), spec, dev)
+    ticks = netsim.sim_ticks(cfg)
+    arr = harness.make_arrivals(cfg, mode, rate_b.tolist(), seeds, dev,
+                                experiment._lower_workloads(cfg, spec))
+    carry, grace = harness.init_run(protocol, cfg, ticks, env, arr,
+                                    len(seeds), dev)
     for t in range(start):                      # past the warm-up
-        carry = harness.step(carry, t, draws, env, cfg, protocol)
+        carry = harness.step(carry, t, arr, env, cfg, protocol, grace)
     window = range(start, start + n_window)
     first = _clone(carry)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for t in window:
-        carry = harness.step(carry, t, draws, env, cfg, protocol)
+        carry = harness.step(carry, t, arr, env, cfg, protocol, grace)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / len(window)
     carry = first
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for t in window:
-            carry = harness.step(carry, t, draws, env, cfg, protocol)
+            carry = harness.step(carry, t, arr, env, cfg, protocol, grace)
         torch.cuda.synchronize()
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA]
@@ -590,12 +619,14 @@ def same_leaves(protocol: str) -> tuple:
     return SAME_LEAVES if protocol == "mandator-sporades" else METRIC_LEAVES
 
 
-def _assert_same(a, b, names, what, leaves=SAME_LEAVES) -> None:
+def _assert_same(a, b, names, what, leaves=SAME_LEAVES,
+                 same_keys=True) -> None:
     """Every leaf of ``leaves`` equal bit for bit (floats compared as
-    their float32 bits, so NaN equals NaN and -0.0 differs from 0.0)."""
+    their float32 bits, so NaN equals NaN and -0.0 differs from 0.0);
+    with ``same_keys``, the rows' keys equal too."""
     import numpy as np
     for x, y, name in zip(a, b, names):
-        if set(x) != set(y):
+        if same_keys and set(x) != set(y):
             raise AssertionError(f"{what}: {name} rows' keys differ")
         for k in leaves:
             u, v = np.asarray(x[k]), np.asarray(y[k])
@@ -818,6 +849,270 @@ def phase_protocols(results: dict) -> None:
         _check_points("mandator-sporades", rows, f"Fig 9 n={n}")
         fig9[n] = {"tput": r["throughput"], "med_ms": r["median_ms"]}
     out["fig9"] = fig9
+
+
+# ---------------------------------------------------------------------------
+# phase 15: windowed and closed-loop workloads, the flight recorder and the
+# health monitor
+# ---------------------------------------------------------------------------
+
+# benchmarks/figures.py workload_matrix: its rates and length (4 s); the
+# seven library workloads x {baseline, paper-ddos}, the analytic models on
+# the baseline only
+WL_RATES = {"mandator-sporades": 200_000, "mandator-paxos": 200_000,
+            "mandator": 200_000, "multipaxos": 30_000}
+WL_ANALYTIC = {"epaxos": 8_000, "rabia": 800}
+WL_S = 4.0
+# benchmarks/figures.py robustness: its rates over the ten library
+# scenarios, cut from 4 s to the suite's --quick 2 s for the script's time
+ROBUST_RATES = {"mandator-sporades": (50_000, 200_000),
+                "mandator-paxos": (50_000, 200_000),
+                "multipaxos": (10_000, 30_000)}
+ROBUST_S = 2.0
+# (protocol, scenario) -> the violation counts the reference's own monitor
+# reports on the robustness matrix at ROBUST_S, at each of ROBUST_RATES
+# (ROADMAP Queue C): a Mandator-Paxos leader of a later view commits a
+# vector clock that does not dominate an earlier leader's (its modelled
+# phase 1 adopts no accepted value). tests/test_torch_monitor.py holds
+# these counts against the reference and the port on the CPU; every other
+# point must report none
+KNOWN_VIOLATIONS = {("mandator-paxos", "paper-ddos"): {"agreement": 413},
+                    ("mandator-paxos", "region-outage"): {"agreement": 50},
+                    ("mandator-paxos", "gray-wan"): {"agreement": 188},
+                    ("mandator-paxos", "flapping-link"): {"agreement": 1021}}
+BITWISE_WL = ("onoff-burst", "region-skew", "closed-loop", "skewed-closed")
+BITWISE_SCEN = ("baseline", "paper-ddos")
+
+
+def one_table(cfg, spec, seed: int = 0):
+    """One arrival table and one epoch stream for a grid, drawn by numpy
+    on the host, so that the card and the CPU read the same: [B, T, n]
+    Poisson counts at each lane's table rates (read by the open lanes) and
+    [B, n, M] unit-rate arrival epochs for the closed lanes (+inf
+    elsewhere)."""
+    import numpy as np
+    from repro_torch.core import experiment, workload
+
+    rate = (np.array([r for r, _, _, _ in spec.points()], np.float64)
+            * cfg.tick_ms / 1000.0 / cfg.n_replicas).astype(np.float32)
+    wlt = experiment._lower_workloads(cfg, spec)
+    lanes = np.arange(len(rate))[:, None]
+    lam = rate[:, None, None] * wlt["rate_of"][lanes, wlt["win_of_tick"]]
+    rng = np.random.RandomState(seed)
+    draws = rng.poisson(lam).astype(np.float32)
+    counts = [workload.epoch_count(rate[b], wlt, b)
+              if wlt["closed"][b] > 0 else 0 for b in range(len(rate))]
+    epochs = np.full((len(rate), cfg.n_replicas, max(max(counts), 1)),
+                     np.inf)
+    for b, c in enumerate(counts):
+        if c:
+            epochs[b, :, :c] = np.cumsum(
+                rng.exponential(size=(cfg.n_replicas, c)), axis=1)
+    return draws, epochs
+
+
+def _phases_explain(r, cfg, ticks: int):
+    """Whether the flight recorder's phase marks explain the row's latency:
+    the four marks of every batch that has them are ordered (arrival <=
+    create <= stable <= commit <= deliver within 1e-6 tick, as the
+    reference's test_obs holds them, so the clamped phases the row reports
+    are the marks' differences), and the weighted median and p99
+    of commit - arrival over the batches the row counts (commit and create
+    marked, past the warm-up) equal the row's median_ms and p99_ms bit for
+    bit; None where no batch committed."""
+    import numpy as np
+    import torch
+    from repro_torch.core import harness
+    marks, arr, cnt = r["batch_marks_t"], r["batch_arr_t"], r["batch_n"]
+    create, commit = marks[0], marks[2]
+    full = np.isfinite(marks).all(axis=0) & (cnt > 0)
+    counted = (np.isfinite(commit) & np.isfinite(create) & (cnt > 0)
+               & (commit >= 0.15 * ticks))
+    if not counted.any():
+        return None
+    steps = np.diff(np.concatenate([arr[None], marks])[:, full], axis=0)
+    if not (steps >= -1e-6).all():
+        return False
+    lat = torch.from_numpy(((commit - arr) * np.float32(cfg.tick_ms)
+                            ).reshape(1, -1))
+    w = torch.from_numpy(np.where(counted, cnt, 0.0).astype(np.float32)
+                         .reshape(1, -1))
+    got = [harness._weighted_quantile(lat, w, q).numpy()[0]
+           for q in (0.5, 0.99)]
+    want = [np.float32(r["median_ms"]), np.float32(r["p99_ms"])]
+    return all(a.view(np.uint32) == b.view(np.uint32)
+               for a, b in zip(got, want))
+
+
+def phase_workloads(results: dict) -> None:
+    """Phase 15: (a) benchmarks/figures.py's workload matrix through the
+    port's entry point at its own 4 s; (b) kernel vs plain and card vs CPU
+    bit for bit on windowed and closed-loop grids from one arrival table
+    and one epoch stream; (c) the robustness matrix with the flight
+    recorder and the health monitor at full, against the same grid with
+    both off."""
+    import dataclasses
+
+    from repro_torch.configs.smr import SMRConfig
+    from repro_torch.core.experiment import SweepSpec, run_sweep
+    from repro_torch.obs import export, monitor
+    from repro_torch.scenarios import library as scenario_library
+    from repro_torch.workloads import library as workload_library
+    from repro_torch.workloads import lower
+
+    out = results.setdefault("workloads", {})
+    n = SMRConfig().n_replicas
+    t_part = time.perf_counter()
+
+    # (a) the workload matrix: one 14-lane grid per scan protocol
+    cfg = SMRConfig(sim_seconds=WL_S)
+    ticks = int(WL_S * 1000 / cfg.tick_ms)
+    wlib = workload_library.workloads(WL_S, n)
+    slib = scenario_library.scenarios(WL_S, n)
+    scen = tuple(slib[x] for x in BITWISE_SCEN)
+    caps = {name: float(lower(cfg, w)["cap"]) for name, w in wlib.items()}
+    closed = {name for name, w in wlib.items()
+              if float(lower(cfg, w)["closed"]) > 0}
+    matrix = {}
+    for proto, rate in WL_RATES.items():
+        spec = SweepSpec(rates=(rate,), scenarios=scen,
+                         workloads=tuple(wlib.values()))
+        rows, wall, launches = _counted(proto, cfg, spec)
+        _check_launches(proto, launches, ticks, "workload matrix")
+        for r, (_, _, fi, wi) in zip(rows, spec.points()):
+            wname, sname = list(wlib)[wi], BITWISE_SCEN[fi]
+            hwm = r["inflight_max"]
+            log("workloads", f"{proto} @{rate} {wname}/{sname}: throughput "
+                             f"{r['throughput']!r} median "
+                             f"{r['median_ms']!r} p99 {r['p99_ms']!r} "
+                             f"inflight max {float(hwm.max())!r}")
+            if not r["committed"] > 0:
+                raise AssertionError(f"workload matrix: {proto} {wname}/"
+                                     f"{sname} committed nothing")
+            if wname in closed and not (hwm <= caps[wname]).all():
+                raise AssertionError(f"workload matrix: {proto} {wname}/"
+                                     f"{sname} in flight {hwm} past the "
+                                     f"cap {caps[wname]}")
+        prof = tick_profile("workloads", proto, None, 200, 50, cfg=cfg,
+                            spec=spec)
+        log("workloads", f"{proto} matrix: {len(rows)} lanes x {ticks} "
+                         f"ticks: wall {wall!r} s, {wall / ticks * 1e3!r} "
+                         f"ms/tick, channel_ring_commit launches "
+                         f"{launches} ({launches / ticks!r} per tick)")
+        matrix[proto] = {"wall_s": wall, "ms_per_tick": wall / ticks * 1e3,
+                         "launches": launches,
+                         "launches_per_tick": launches / ticks,
+                         "profile": prof}
+    for proto, rate in WL_ANALYTIC.items():
+        t0 = time.perf_counter()
+        rows = run_sweep(proto, cfg, SweepSpec(
+            rates=(rate,), workloads=tuple(wlib.values())))
+        log("workloads", f"{proto} @{rate} (host model, baseline, "
+                         f"{time.perf_counter() - t0!r} s): " + ", ".join(
+                             f"{r['workload']} {r['throughput']!r}"
+                             for r in rows))
+    out["matrix"] = matrix
+    log("time", f"workloads (a) {time.perf_counter() - t_part!r} s")
+    t_part = time.perf_counter()
+
+    # (b) bit for bit, 1 s, one arrival table and one epoch stream
+    cfg = SMRConfig(sim_seconds=1.0)
+    wlib1 = workload_library.workloads(1.0, n)
+    slib1 = scenario_library.scenarios(1.0, n)
+    for proto, rate in WL_RATES.items():
+        spec = SweepSpec(rates=(rate,),
+                         scenarios=tuple(slib1[x] for x in BITWISE_SCEN),
+                         workloads=tuple(wlib1[x] for x in BITWISE_WL))
+        names = [f"{BITWISE_WL[wi]}/{BITWISE_SCEN[fi]}"
+                 for _, _, fi, wi in spec.points()]
+        draws, epochs = one_table(cfg, spec)
+        leaves = same_leaves(proto) + ("inflight_max",)
+        runs = {b: run_sweep(proto, dataclasses.replace(
+            cfg, channel_backend=b), spec, draws=draws, epochs=epochs)
+            for b in ("cuda", "ref")}
+        cpu = run_sweep(proto, cfg, spec, device="cpu", draws=draws,
+                        epochs=epochs)
+        _assert_same(runs["cuda"], runs["ref"], names,
+                     f"{proto} kernel vs plain", leaves)
+        _assert_same(runs["cuda"], cpu, names, f"{proto} cuda vs cpu",
+                     leaves)
+        log("workloads", f"{proto}: kernel vs plain and card vs CPU (1 s, "
+                         "one arrival table, one epoch stream) bitwise "
+                         f"equal on {', '.join(names)}: {', '.join(leaves)}")
+
+    log("time", f"workloads (b) {time.perf_counter() - t_part!r} s")
+    t_part = time.perf_counter()
+
+    # (c) the robustness matrix with telemetry on, against it off
+    cfg_off = SMRConfig(sim_seconds=ROBUST_S)
+    cfg_on = dataclasses.replace(cfg_off, trace_level="full",
+                                 monitor_level="full")
+    ticks = int(ROBUST_S * 1000 / cfg_off.tick_ms)
+    lib = scenario_library.scenarios(ROBUST_S, n)
+    robust = {}
+    for proto, rates in ROBUST_RATES.items():
+        spec = SweepSpec(rates=rates, scenarios=tuple(lib.values()))
+        names = [f"{rate:.0f}/{list(lib)[fi]}"
+                 for rate, _, fi, _ in spec.points()]
+        off, wall_off, l_off = _counted(proto, cfg_off, spec)
+        on, wall_on, l_on = _counted(proto, cfg_on, spec)
+        _check_launches(proto, l_on, ticks, "robustness, telemetry on")
+        # telemetry adds keys (obs, mon, the phase breakdown) and moves
+        # no metric
+        _assert_same(on, off, names, f"{proto} telemetry on vs off",
+                     same_leaves(proto), same_keys=False)
+        checked = 0
+        for r, (_, _, fi, _), name in zip(on, spec.points(), names):
+            v = monitor.verdict(r)
+            known = KNOWN_VIOLATIONS.get((proto, list(lib)[fi]), {})
+            if v["violations"] != known:
+                raise AssertionError(f"robustness: {proto} {name}: "
+                                     f"{monitor.format_verdict(v)}, the "
+                                     f"reference's {known or 'none'}")
+            if known:
+                log("robustness", f"{proto} {name}: "
+                                  f"{monitor.format_verdict(v)}, equal to "
+                                  "the reference's own count (Queue C)")
+            tele = _phases_explain(r, cfg_on, ticks)
+            if tele is False:
+                raise AssertionError(f"robustness: {proto} {name}: the "
+                                     "phase marks do not explain the "
+                                     "row's latency")
+            checked += tele is True
+        if checked < len(on) // 2:
+            raise AssertionError(f"robustness: {proto}: only {checked} of "
+                                 f"{len(on)} points committed a batch")
+        i = names.index(f"{rates[-1]:.0f}/paper-ddos")
+        trace = export.chrome_trace(on[i], cfg_on, proto,
+                                    scenario=lib["paper-ddos"])
+        export.validate(trace)
+        p_off = tick_profile("robustness", proto, None, 100, 50,
+                             cfg=cfg_off, spec=spec)
+        p_on = tick_profile("robustness", proto, None, 100, 50, cfg=cfg_on,
+                            spec=spec)
+        per = lambda p, k: p[k] if p else float("nan")  # noqa: E731
+        merged = monitor.merge_verdicts([monitor.verdict(r) for r in on])
+        log("robustness", f"{proto} {len(on)} lanes x {ticks} ticks, "
+                          f"{monitor.format_verdict(merged)}; "
+                          f"telemetry off / on: wall {wall_off!r} / "
+                          f"{wall_on!r} s, ms/tick "
+                          f"{wall_off / ticks * 1e3!r} / "
+                          f"{wall_on / ticks * 1e3!r}, launches/tick "
+                          f"{per(p_off, 'launches_per_tick')!r} / "
+                          f"{per(p_on, 'launches_per_tick')!r}, busy share "
+                          f"{per(p_off, 'busy_share')!r} / "
+                          f"{per(p_on, 'busy_share')!r}; metrics bitwise "
+                          f"equal; phase marks explain the latency on "
+                          f"{checked} points; "
+                          f"{len(trace['traceEvents'])} trace events at "
+                          f"{names[i]} validate")
+        robust[proto] = {"wall_off_s": wall_off, "wall_on_s": wall_on,
+                         "ms_per_tick_off": wall_off / ticks * 1e3,
+                         "ms_per_tick_on": wall_on / ticks * 1e3,
+                         "launches": l_on, "profile_off": p_off,
+                         "profile_on": p_on}
+    out["robustness"] = robust
+    log("time", f"workloads (c) {time.perf_counter() - t_part!r} s")
 
 
 # ---------------------------------------------------------------------------
@@ -1951,6 +2246,8 @@ def kernel_entries(results: dict) -> list:
         "protocol_grids": {p: results["protocols"][p]
                            for p in ("mandator-paxos", "multipaxos",
                                      "mandator")},
+        "workload_matrix": results["workloads"]["matrix"],
+        "robustness_telemetry": results["workloads"]["robustness"],
     }, {
         "name": "rmsnorm",
         "route": "cuda",
@@ -2103,6 +2400,7 @@ def main() -> int:
     timed("decode kernel", phase_decode_kernel, results)
     timed("mamba", phase_mamba, results)
     timed("prefill bf16", phase_prefill_bf16, results)
+    timed("workloads", phase_workloads, results)
 
     kernels = kernel_entries(results)
     print(card)

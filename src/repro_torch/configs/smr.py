@@ -75,11 +75,19 @@ class SMRConfig:
     # CPU tensors; "ref" = the plain version on any device; "cuda" = the
     # kernel (raises on CPU tensors).
     channel_backend: str = "auto"
-    # Flight recorder and health monitor of the reference; the port runs
-    # only "off" so far (ROADMAP Queue A item 13).
+    # Flight recorder (repro_torch.obs): "off" (default — the tick runs
+    # exactly the untraced ops), "counters" (per-kind event counts only),
+    # or "full" (event rings + per-batch phase marks).
     trace_level: str = "off"
+    # Event-ring capacity per replica per layer at trace_level="full";
+    # overflow keeps the newest events and counts the dropped oldest.
     trace_events: int = 512
+    # Consensus health monitor (repro_torch.obs.monitor): "off" (default),
+    # "gauges" (ring occupancy, dropped sends, inflight high-water,
+    # starvation) or "full" (gauges + safety/liveness invariant checks).
     monitor_level: str = "off"
+    # Commit-stall watchdog grace window (ms). 0 = derive it per lane from
+    # the view timeout and the scenario's delay tables.
     monitor_stall_grace_ms: float = 0.0
 
     def delays_ms(self) -> np.ndarray:

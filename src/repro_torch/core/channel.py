@@ -109,10 +109,27 @@ def fill_tensor(spec: RingSpec, device: torch.device) -> torch.Tensor:
 def ring_occupancy(spec: RingSpec, ring: Dict[str, torch.Tensor]
                    ) -> torch.Tensor:
     """[B] fraction of (slot, sender, receiver, channel) entries holding an
-    undelivered message (flag fields > 0.5)."""
-    flags = torch.stack([ring["buf"][..., spec.flag(c.name)]
-                         for c in spec.channels], dim=-1)
-    return (flags > 0.5).float().flatten(1).mean(dim=1)
+    undelivered message (flag fields > 0.5), the health monitor's ring
+    gauge. The count is exact in float32; XLA-CPU takes the reference's
+    ``jnp.mean`` as the count times the float32 reciprocal of the size,
+    and so does this, on the CPU and on the card alike (torch's CPU
+    ``mean`` divides instead)."""
+    buf = ring["buf"]
+    full = (buf[..., _flag_index(spec, buf.device)] > 0.5).flatten(1)
+    held = full.sum(dim=1).float()
+    return held * _reciprocal(held, full.shape[1])
+
+
+@functools.lru_cache(maxsize=64)
+def _flag_index(spec: RingSpec, device: torch.device) -> torch.Tensor:
+    """The flag fields' offsets in the packed ring, on ``device``."""
+    return torch.tensor([spec.flag(c.name) for c in spec.channels],
+                        dtype=torch.int64, device=device)
+
+
+def _reciprocal(like: torch.Tensor, size: int) -> torch.Tensor:
+    """float32 1/size as a tensor like ``like``."""
+    return torch.full_like(like, float(np.float32(1.0) / np.float32(size)))
 
 
 class Send(NamedTuple):

@@ -17,10 +17,6 @@ for dependency batches from other replicas' instances. We model:
 The d_avg serial term is the "infinitely growing dependency chains" effect:
 when commits outpace 1/d_avg, execution latency diverges — reproducing the
 ~6.5k tx/s @ <=720ms saturation the paper measures.
-
-The reference's phase accounting and health-monitor verdict come with the
-flight recorder and monitor (ROADMAP Queue A item 13): tracing or
-monitoring on raises here.
 """
 from __future__ import annotations
 
@@ -29,7 +25,9 @@ from typing import Dict, Optional
 import numpy as np
 
 from repro_torch.configs.smr import SMRConfig
-from repro_torch.core.harness import check_observability_off
+from repro_torch.obs import monitor as hmon
+from repro_torch.obs.decode import host_phases
+from repro_torch.obs.trace import TraceLevel
 from repro_torch.workloads.analytic import (
     TableRate,
     closed_equilibrium_rate,
@@ -39,13 +37,11 @@ from repro_torch.workloads.analytic import (
 
 def run_epaxos_model(cfg: SMRConfig, rate_tx_s: float, scenario=None,
                      workload=None) -> Dict:
-    """``workload``: a repro_torch.workloads.Workload (or None). Open-loop
-    shapes modulate the per-origin mean rate over time through the same
-    compiled table the simulator reads; a closed-loop workload is
-    approximated at its Little's-law equilibrium (run once open to measure
-    latency, then re-run at the rate the client pools actually sustain).
-    The scenario does not enter the model, as in the reference."""
-    check_observability_off(cfg)
+    """``workload``: a ``workloads.Workload`` (or None). Open-loop shapes
+    modulate the per-origin mean rate over time through the same compiled
+    table the simulator reads; a closed-loop workload is approximated at
+    its Little's-law equilibrium (run once open to measure latency, then
+    re-run at the rate the client pools actually sustain)."""
     wl_rate, closed = host_rate(cfg, workload)
     if closed is not None:
         first = _epaxos_once(cfg, rate_tx_s, wl_rate)
@@ -105,6 +101,12 @@ def _epaxos_once(cfg: SMRConfig, rate_tx_s: float,
     exec_prev = 0.0
     lat, wt = [], []
     committed = 0.0
+    # phase accounting (analytic twin of harness._phase_breakdown):
+    # queue = half the batch fill, consensus = the instance's commit
+    # round(s), delivery = the dependency-chain execution wait; EPaxos
+    # has no separate dissemination layer (batches ride inside PreAccept)
+    phases = {"queue": [], "consensus": [], "delivery": []} \
+        if cfg.trace_level != TraceLevel.OFF else None
     for create, commit, i, cnt, lam_t in events:
         e = max(commit + d_max[i], exec_prev + p_slow * d_avg)
         exec_prev = e
@@ -112,6 +114,10 @@ def _epaxos_once(cfg: SMRConfig, rate_tx_s: float,
             committed += cnt
             lat.append(e - create + batch / max(lam_t, 1e-9) / 2)
             wt.append(cnt)
+            if phases is not None:
+                phases["queue"].append(batch / max(lam_t, 1e-9) / 2)
+                phases["consensus"].append(commit - create)
+                phases["delivery"].append(e - commit)
     lat, wt = np.array(lat), np.array(wt)
     order = np.argsort(lat) if len(lat) else np.array([], int)
     med = p99 = float("nan")
@@ -124,7 +130,28 @@ def _epaxos_once(cfg: SMRConfig, rate_tx_s: float,
     for create, commit, i, cnt, _ in events:
         if commit < sim_ms:
             timeline[int(commit // 500)] += cnt
-    return {"protocol": "epaxos", "rate": rate_tx_s,
-            "throughput": committed / (sim_ms / 1000.0),
-            "median_ms": med, "p99_ms": p99, "committed": committed,
-            "timeline": timeline / 0.5}
+    out = {"protocol": "epaxos", "rate": rate_tx_s,
+           "throughput": committed / (sim_ms / 1000.0),
+           "median_ms": med, "p99_ms": p99, "committed": committed,
+           "timeline": timeline / 0.5}
+    if phases is not None:
+        out.update(host_phases(phases, wt))
+    if hmon.on(cfg.monitor_level):
+        # host twin of the device monitor: the model is correct by
+        # construction, so the checks are overdraw-style — more committed
+        # than offered would be a phantom commit; events sort by commit
+        # time, so a backwards execution order would be a prefix break
+        offered = rate_tx_s * sim_ms / 1000.0
+        execs = [e[1] for e in events]
+        starved = sum(1 for create, commit, _, cnt, _ in events
+                      if commit >= sim_ms)
+        out["monitor"] = hmon.host_verdict(
+            violations={
+                "commit_once": int(committed > offered * 1.01 + 1.0),
+                "prefix": sum(1 for a, b in zip(execs, execs[1:])
+                              if b < a),
+            },
+            gauges={"starved_batches": int(starved),
+                    "instances": len(events)},
+            level=cfg.monitor_level)
+    return out

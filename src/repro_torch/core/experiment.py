@@ -1,5 +1,6 @@
-"""Batched experiment engine: a whole rate × seed × scenario sweep grid as
-ONE batched dispatch of B lanes (port of ``repro.core.experiment``).
+"""Batched experiment engine: a whole workload × scenario × rate × seed
+sweep grid as ONE batched dispatch of B lanes (port of
+``repro.core.experiment``).
 
 ``run_sweep`` lowers a ``SweepSpec`` on the host:
 
@@ -7,14 +8,16 @@ ONE batched dispatch of B lanes (port of ``repro.core.experiment``).
      (``netsim.resolve_horizon`` over every scenario of the grid), so every
      lane shares one ring shape;
   2. every scenario becomes an env (``netsim.build_env``, window tables
-     padded to a common width), and the flattened grid's envs stack along
-     a leading batch axis B;
+     padded to a common width), and every workload a windowed rate table
+     (``workloads.lower``, padded the same way); the flattened grid's envs
+     and tables stack along a leading batch axis B;
   3. ``harness.sim_point`` runs all B lanes through one tick loop and
      extracts their metrics on the device.
 
 Grid points are independent lanes: a lane's result does not depend on the
-other lanes (its arrival draws come from its own generator), so a batched
-grid equals the same points run one by one, bit for bit.
+other lanes (its arrivals come from its own generator), so a batched grid
+equals the same points run one by one, bit for bit — open-loop lanes
+sharing a closed-mode grid with closed-loop lanes included.
 
 The analytic baselines (epaxos / rabia) have no tick loop; they are looped
 on the host behind the same API, and touch no device.
@@ -84,7 +87,8 @@ class SweepSpec:
 
 def _lower(cfg: SMRConfig, spec: SweepSpec, device: torch.device):
     """Flatten the grid to a batched env, per-lane rates (per replica per
-    tick) and seeds, the workload mode and the horizon-resolved cfg."""
+    tick) and seeds, the workload mode (judged on the unpadded lowerings)
+    and the horizon-resolved cfg."""
     pts = list(spec.points())
     stabs = [sc.lower(cfg, sc.as_scenario(f)) for f in spec.scenarios]
     n_windows = max(t["alive"].shape[0] for t in stabs)
@@ -104,6 +108,18 @@ def _lower(cfg: SMRConfig, spec: SweepSpec, device: torch.device):
     return pts, cfg, mode, env_b, rate_b, seed_b
 
 
+def _lower_workloads(cfg: SMRConfig, spec: SweepSpec) -> Dict:
+    """The grid's workload tables stacked per lane (numpy), every workload
+    padded to the grid's window count: rate_of [B, W, n], win_of_tick
+    [B, T], closed / think_ticks / cap [B]. ``win_start`` is host-side
+    metadata of ragged width and stays out."""
+    pad = max(wlc.compile.n_windows(cfg, w) for w in spec.workloads)
+    tabs = [wlc.lower(cfg, w, pad_windows=pad) for w in spec.workloads]
+    widx = [wi for _, _, _, wi in spec.points()]
+    return {k: np.stack([tabs[wi][k] for wi in widx])
+            for k in tabs[0] if k != "win_start"}
+
+
 class PendingSweep:
     """A dispatched sweep. In the port the grid has already run when
     ``dispatch_sweep`` returns (see the module docstring); ``collect()``
@@ -120,6 +136,23 @@ class PendingSweep:
 # per-point metric arrays every scan protocol returns
 _ROW_ARRAYS = ("timeline", "origin_median_ms", "origin_p99_ms",
                "origin_timeline", "origin_lat_ms_timeline")
+# per-point arrays present in some modes only: closed-loop in-flight high
+# water, the flight recorder's phase breakdown (absent at trace_level off)
+_ROW_OPTIONAL = ("inflight_max", "phase_med_ms", "phase_p99_ms",
+                 "phase_origin_med_ms", "phase_origin_p99_ms",
+                 "batch_marks_t", "batch_arr_t", "batch_n")
+
+
+def _to_numpy(tree):
+    if isinstance(tree, dict):
+        return {k: _to_numpy(v) for k, v in tree.items()}
+    return tree.cpu().numpy()
+
+
+def _lane(tree, i: int):
+    if isinstance(tree, dict):
+        return {k: _lane(v, i) for k, v in tree.items()}
+    return tree[i]
 
 
 def _analytic_rows(protocol: str, cfg: SMRConfig, spec: SweepSpec,
@@ -135,14 +168,15 @@ def _analytic_rows(protocol: str, cfg: SMRConfig, spec: SweepSpec,
 
 
 def _scan_rows(protocol: str, cfg: SMRConfig, spec: SweepSpec,
-               wl_names: List[str], device, draws) -> List[Dict]:
-    harness.check_supported(protocol, cfg)
+               wl_names: List[str], device, draws, epochs) -> List[Dict]:
     dev = _device.resolve(device)
     t0 = time.perf_counter()
     pts, cfg, mode, env_b, rate_b, seed_b = _lower(cfg, spec, dev)
+    harness.check_supported(protocol, cfg, mode)
     out = harness.sim_point(protocol, cfg, env_b, rate_b.tolist(), seed_b,
-                            draws=draws, mode=mode, device=dev)
-    out = {k: v.cpu().numpy() for k, v in out.items()}
+                            draws=draws, mode=mode, device=dev,
+                            wlt=_lower_workloads(cfg, spec), epochs=epochs)
+    out = _to_numpy(out)
     stats = _TIMING.setdefault(protocol, {"run_s": 0.0, "horizon": 0})
     stats["run_s"] += time.perf_counter() - t0
     stats["horizon"] = int(cfg.delay_horizon_ticks)
@@ -161,33 +195,44 @@ def _scan_rows(protocol: str, cfg: SMRConfig, spec: SweepSpec,
             r["views"] = int(out["views"][i])
             r["cvc_all"] = out["cvc_all"][i]
             r["commit_key"] = out["commit_key"][i]
+        for k in _ROW_OPTIONAL:
+            if k in out:
+                r[k] = out[k][i]
+        # the flight recorder's rings and the health monitor's gauges
+        # (absent when their levels are off)
+        for k in ("obs", "mon"):
+            if k in out:
+                r[k] = _lane(out[k], i)
         results.append(r)
     return results
 
 
 def dispatch_sweep(protocol: str, cfg: SMRConfig, spec: SweepSpec,
-                   device=None, draws=None) -> PendingSweep:
+                   device=None, draws=None, epochs=None) -> PendingSweep:
     """Run the grid and return it as a ``PendingSweep``. Scan protocols
     (``harness.PROTOCOLS``) run as one batched dispatch of B lanes on
-    ``device`` (None = CUDA, raises without one; or e.g. "cpu");
-    ``draws`` is an optional [B, T, n] arrival table replacing their
-    per-lane torch Poisson draws. The analytic baselines
+    ``device`` (None = CUDA, raises without one; or e.g. "cpu"), under
+    any library workload and any trace or monitor level. ``draws`` (an
+    optional [B, T, n] arrival table) and ``epochs`` (an optional
+    [B, n, M] epoch stream of the closed lanes) replace their per-lane
+    torch draws (see ``harness.sim_point``). The analytic baselines
     (``ANALYTIC_PROTOCOLS``) loop on the host and take neither."""
     wl_names = [wlc.as_workload(w).name for w in spec.workloads]
     if protocol in ANALYTIC_PROTOCOLS:
-        if draws is not None:
+        if draws is not None or epochs is not None:
             raise ValueError(f"{protocol} is an analytic model and draws no "
                              "arrivals")
         return PendingSweep(protocol,
                             _analytic_rows(protocol, cfg, spec, wl_names))
     return PendingSweep(protocol, _scan_rows(protocol, cfg, spec, wl_names,
-                                             device, draws))
+                                             device, draws, epochs))
 
 
 def run_sweep(protocol: str, cfg: SMRConfig, spec: SweepSpec, device=None,
-              draws=None) -> List[Dict]:
+              draws=None, epochs=None) -> List[Dict]:
     """Run the whole grid; returns one result dict per point, in
     ``spec.points()`` order, with the keys of the reference's
     ``PendingSweep.collect`` for this protocol. See ``dispatch_sweep`` for
-    ``device`` and ``draws``."""
-    return dispatch_sweep(protocol, cfg, spec, device, draws).collect()
+    ``device``, ``draws`` and ``epochs``."""
+    return dispatch_sweep(protocol, cfg, spec, device, draws,
+                          epochs).collect()

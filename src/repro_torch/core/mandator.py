@@ -9,7 +9,10 @@ dissemination, batched over the grid (port of ``repro.core.mandator``):
   clock — the only thing the consensus layer ever orders.
 
 Every state tensor carries a leading lane axis ``B``. The tick takes a
-Python-int ``t`` and does no host sync.
+Python-int ``t`` and does no host sync. With ``trace_level`` or
+``monitor_level`` on, the state also carries the layer's flight recorder
+(``tr``) and the monitor's per-tick IO gauges (``mon_io``); the tick's
+last step records into them and reads nothing they hold.
 """
 from __future__ import annotations
 
@@ -21,6 +24,8 @@ from repro_torch import device as _device
 from repro_torch.configs.smr import SMRConfig
 from repro_torch.core import channel as ch
 from repro_torch.core import netsim, workload
+from repro_torch.obs import monitor as hmon
+from repro_torch.obs import trace as obs
 
 
 def ring_spec() -> ch.RingSpec:
@@ -32,15 +37,26 @@ def ring_spec() -> ch.RingSpec:
 
 
 def init_state(cfg: SMRConfig, n_ticks: int, batch: int = 1,
-               device=None) -> Dict:
+               device=None, closed: bool = False) -> Dict:
     """Tick-0 state of ``batch`` lanes on ``device`` (None = CUDA).
-    ``cfg.delay_horizon_ticks`` must be resolved to an int."""
+    ``cfg.delay_horizon_ticks`` must be resolved to an int. ``closed`` shapes
+    the workload state (``workload.init_workload``)."""
     dev = _device.resolve(device)
     n = cfg.n_replicas
     zi = lambda *s: torch.zeros((batch, *s), dtype=torch.int32,  # noqa: E731
                                 device=dev)
+    # flight recorder and monitor IO: absent at trace_level / monitor_level
+    # "off", so the untraced tick runs exactly the untraced ops
+    extra = {}
+    tr = obs.init_trace(obs.DEFAULT_SPEC, cfg.trace_level, n,
+                        cfg.trace_events, batch, dev)
+    if tr is not None:
+        extra["tr"] = tr
+    if hmon.on(cfg.monitor_level):
+        extra["mon_io"] = {"dropped": zi(n)}
     return {
-        "wl": workload.init_workload(cfg, n_ticks, batch, dev),
+        **extra,
+        "wl": workload.init_workload(cfg, n_ticks, batch, dev, closed),
         "own_round": zi(n),       # last completed round
         "formed_round": zi(n),    # last formed round
         "lcr": zi(n, n),          # i's lastCompletedRounds
@@ -53,10 +69,10 @@ def init_state(cfg: SMRConfig, n_ticks: int, batch: int = 1,
     }
 
 
-def tick(st: Dict, t: int, draws_t: torch.Tensor, env: Dict,
+def tick(st: Dict, t: int, arr: workload.Arrivals, env: Dict,
          cfg: SMRConfig) -> Dict:
-    """One simulator tick of every lane. draws_t: [B, n] this tick's
-    Poisson arrival draws (row t of the draw table)."""
+    """One simulator tick of every lane. arr: the arrivals the tick's
+    clients read (``workload.Arrivals``)."""
     n = cfg.n_replicas
     f = (n - 1) // 2
     quorum = n - f
@@ -72,7 +88,7 @@ def tick(st: Dict, t: int, draws_t: torch.Tensor, env: Dict,
     sends = []
 
     # 1) client arrivals + cpu refill
-    wl = workload.arrive(st["wl"], draws_t, t, alive)
+    wl = workload.arrive(st["wl"], arr, t, alive)
     wl = workload.refill_cpu(wl, env["cpu_req_per_tick"])
 
     # 2) deliver <new-Mandator-batch>: update seen rounds + lcr, send votes
@@ -125,6 +141,25 @@ def tick(st: Dict, t: int, draws_t: torch.Tensor, env: Dict,
 
     ring = ch.ring_commit(spec, st["ring"], t, sends, drop=drop,
                           backend=cfg.channel_backend)
+
+    # ---- flight recorder + monitor IO (absent => not run) ---------------
+    tr = st.get("tr")
+    if tr is not None or "mon_io" in st:
+        cut = (vote_mask & drop).sum(dim=2) + (formed[..., None]
+                                               & drop).sum(dim=2)
+    if tr is not None:
+        completed = own_round - st["own_round"]
+        done = completed > 0
+        st["tr"] = obs.record_env(
+            obs.DEFAULT_SPEC, tr, alive, t, a=own_round, b=formed_round,
+            dropped_links=cut, events=(
+                ("batch_ack", done, own_round, quorum),
+                ("batch_stable", done, own_round, completed),
+                ("batch_create", formed, formed_round, count),
+                ("batch_disseminate", formed, formed_round,
+                 ser_delay.amax(dim=2))))
+    if "mon_io" in st:
+        st["mon_io"] = {"dropped": cut.int()}
 
     st.update(wl=wl, own_round=own_round, formed_round=formed_round, lcr=lcr,
               seen_round=seen, vote_max=vote_max, ring=ring,

@@ -17,7 +17,9 @@ is not modeled).
 
 Every state tensor carries a leading lane axis ``B``; matrices are
 [B, replica, replica, ...]. The tick takes a Python-int ``t`` and does no
-host sync.
+host sync. With tracing or monitoring on, the state also carries the
+layer's flight recorder (``tr``) and the monitor's IO gauges
+(``mon_io``), written at the end of the tick.
 """
 from __future__ import annotations
 
@@ -30,6 +32,8 @@ from repro_torch import device as _device
 from repro_torch.configs.smr import SMRConfig
 from repro_torch.core import channel as ch
 from repro_torch.core import netsim, workload
+from repro_torch.obs import monitor as hmon
+from repro_torch.obs import trace as obs
 
 I32 = torch.int32
 
@@ -56,9 +60,12 @@ def ring_spec(n: int, mandator_mode: bool) -> ch.RingSpec:
 
 
 def init_state(cfg: SMRConfig, n_ticks: int, mandator_mode: bool,
-               batch: int = 1, device=None) -> Dict:
+               batch: int = 1, device=None, closed: bool = False
+               ) -> Dict:
     """Tick-0 state of ``batch`` lanes on ``device`` (None = CUDA).
-    ``cfg.delay_horizon_ticks`` must be resolved to an int."""
+    ``cfg.delay_horizon_ticks`` must be resolved to an int. ``closed`` shapes
+    the workload state of plain mode, where the
+    clients' requests arrive (``workload.init_workload``)."""
     dev = _device.resolve(device)
     n = cfg.n_replicas
 
@@ -66,8 +73,18 @@ def init_state(cfg: SMRConfig, n_ticks: int, mandator_mode: bool,
         return torch.zeros((batch, *s), dtype=dtype, device=dev)
 
     phase1 = torch.as_tensor(_phase1_ticks(cfg), device=dev)
+    # flight recorder and monitor IO: absent when off (see mandator)
+    extra = {}
+    tr = obs.init_trace(obs.DEFAULT_SPEC, cfg.trace_level, n,
+                        cfg.trace_events, batch, dev)
+    if tr is not None:
+        extra["tr"] = tr
+    if hmon.on(cfg.monitor_level):
+        extra["mon_io"] = {"dropped": z(n)}
+    closed = closed and not mandator_mode
     return {
-        "wl": workload.init_workload(cfg, n_ticks, batch, dev),
+        **extra,
+        "wl": workload.init_workload(cfg, n_ticks, batch, dev, closed),
         "view": z(n),
         "last_heard": z(n, dtype=torch.float32),
         "ready_at": z(n, dtype=torch.float32),
@@ -96,13 +113,12 @@ def _sum_senders(x: torch.Tensor) -> torch.Tensor:
     return acc
 
 
-def tick(st: Dict, t: int, draws_t: Optional[torch.Tensor], env: Dict,
+def tick(st: Dict, t: int, arr: Optional[workload.Arrivals], env: Dict,
          cfg: SMRConfig, mandator_mode: bool,
          lcr: Optional[torch.Tensor] = None) -> Dict:
-    """One simulator tick of every lane. draws_t: [B, n] this tick's
-    Poisson arrival draws (row t of the draw table), read in plain mode
-    only; lcr: Mandator's getClientRequests() [B, n, n], mandator mode
-    only."""
+    """One simulator tick of every lane. arr: the arrivals the clients
+    read (``workload.Arrivals``), plain mode only; lcr: Mandator's
+    getClientRequests() [B, n, n], mandator mode only."""
     n = cfg.n_replicas
     maj = n // 2 + 1
     alive = netsim.alive(env, t)
@@ -129,7 +145,7 @@ def tick(st: Dict, t: int, draws_t: Optional[torch.Tensor], env: Dict,
 
     # ---- request forwarding (plain mode) ----------------------------------
     if not mandator_mode:
-        wl = workload.arrive(wl, draws_t, t, alive)
+        wl = workload.arrive(wl, arr, t, alive)
         # forward whole local buffer to my current leader
         cnt = wl["buffer"]
         tsum = wl["buffer_tsum"]
@@ -177,6 +193,7 @@ def tick(st: Dict, t: int, draws_t: Optional[torch.Tensor], env: Dict,
         slot_vc = torch.cat([slot.float()[..., None], pay_vc], dim=-1)
         size_bytes = torch.where(have, float(cfg.meta_bytes), 0.0)
         formed = have
+        count = 0
     else:
         wl, formed, count = workload.form_batches(
             wl, t, can_prop, st["slot"] + 1, cfg.batch_paxos,
@@ -229,6 +246,25 @@ def tick(st: Dict, t: int, draws_t: Optional[torch.Tensor], env: Dict,
 
     ring = ch.ring_commit(spec, st["ring"], t, sends, drop=drop,
                           backend=cfg.channel_backend)
+
+    # ---- flight recorder + monitor IO (absent => not run) ---------------
+    tr = st.get("tr")
+    if tr is not None or "mon_io" in st:
+        sent_any = sends[0].mask
+        for snd in sends[1:]:
+            sent_any = sent_any | snd.mask
+        cut = (sent_any & drop).sum(dim=2)
+    if tr is not None:
+        st["tr"] = obs.record_env(
+            obs.DEFAULT_SPEC, tr, alive, t, a=view, b=slot,
+            dropped_links=cut, events=(
+                ("view_change", view != st["view"], view, slot),
+                ("leader_change", became_leader, view % n, view),
+                ("commit", commit, committed_slot, ack_cnt),
+                ("batch_create", formed, slot, count),
+                ("batch_disseminate", formed, slot, ser.amax(dim=2))))
+    if "mon_io" in st:
+        st["mon_io"] = {"dropped": cut.int()}
 
     st.update(wl=wl, view=view, last_heard=last_heard, ready_at=ready_at,
               slot=slot, outstanding=outstanding, acks=acks,

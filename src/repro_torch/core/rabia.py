@@ -12,10 +12,6 @@ RTTs. We simulate slot-by-slot over the real batch streams:
   uncommitted batch iff it is known to >= majority replicas at slot start
   (creation + one-way delay), else the slot is a NULL round (Ben-Or coin
   retry) — reproducing the ~500 tx/s WAN collapse of Fig. 6.
-
-The reference's host trace, phase accounting and health-monitor verdict
-come with the flight recorder and monitor (ROADMAP Queue A item 13):
-tracing or monitoring on raises here.
 """
 from __future__ import annotations
 
@@ -24,7 +20,9 @@ from typing import Dict, Optional
 import numpy as np
 
 from repro_torch.configs.smr import SMRConfig
-from repro_torch.core.harness import check_observability_off
+from repro_torch.obs import monitor as hmon
+from repro_torch.obs.decode import host_phases
+from repro_torch.obs.trace import HostTrace, TraceLevel
 from repro_torch.workloads.analytic import (
     TableRate,
     closed_equilibrium_rate,
@@ -34,12 +32,10 @@ from repro_torch.workloads.analytic import (
 
 def run_rabia_model(cfg: SMRConfig, rate_tx_s: float, scenario=None,
                     workload=None) -> Dict:
-    """``workload``: a repro_torch.workloads.Workload (or None). Open-loop
-    shapes make the batch streams time-varying through the compiled rate
-    table; closed-loop pools are approximated at their Little's-law
-    equilibrium (measure latency open, re-run at the sustainable rate).
-    The scenario does not enter the model, as in the reference."""
-    check_observability_off(cfg)
+    """``workload``: a ``workloads.Workload`` (or None). Open-loop shapes
+    make the batch streams time-varying through the compiled rate table;
+    closed-loop pools are approximated at their Little's-law equilibrium
+    (measure latency open, re-run at the sustainable rate)."""
     wl_rate, closed = host_rate(cfg, workload)
     if closed is not None:
         first = _rabia_once(cfg, rate_tx_s, wl_rate)
@@ -83,7 +79,18 @@ def _rabia_once(cfg: SMRConfig, rate_tx_s: float,
     lat, wt = [], []
     nbuck = int(np.ceil(sim_ms / 500.0))
     timeline = np.zeros(nbuck)
+    # flight recorder (host-side twin of repro.obs): one commit event per
+    # committed slot, one view_change per NULL (Ben-Or coin) round
+    tr = None if cfg.trace_level == TraceLevel.OFF else HostTrace()
+    # phase accounting (analytic twin of harness._phase_breakdown):
+    # dissemination = propagation to a majority, consensus = the slot
+    # wait + 2.5-RTT weak-MVC rounds (the remainder of the latency)
+    phases = {"dissemination": [], "consensus": []} if tr is not None \
+        else None
     ptr = 0
+    slot_idx = 0
+    null_slots = 0
+    commit_ts = []
     t_slot = slot_ms
     while t_slot < sim_ms and ptr < len(streams):
         create, origin, cnt = streams[ptr]
@@ -91,12 +98,25 @@ def _rabia_once(cfg: SMRConfig, rate_tx_s: float,
             t_end = t_slot + slot_ms
             if t_end < sim_ms:
                 committed += cnt
+                commit_ts.append(t_end)
                 lat.append(t_end - create)
                 wt.append(cnt)
                 timeline[int(t_end // 500)] += cnt
+                if tr is not None:
+                    tr.record("commit", t_end / cfg.tick_ms, who=origin,
+                              key=slot_idx, total=cnt)
+                    diss = min(prop_ms[origin], t_end - create)
+                    phases["dissemination"].append(diss)
+                    phases["consensus"].append(t_end - create - diss)
             ptr += 1
-        # else: a NULL slot (the coin round commits nothing)
+        else:
+            # NULL slot (coin round commits nothing)
+            null_slots += 1
+            if tr is not None:
+                tr.record("view_change", t_slot / cfg.tick_ms,
+                          view=slot_idx, round=0)
         t_slot += slot_ms
+        slot_idx += 1
     lat, wt = np.array(lat), np.array(wt)
     med = p99 = float("nan")
     if len(lat):
@@ -104,7 +124,30 @@ def _rabia_once(cfg: SMRConfig, rate_tx_s: float,
         cum = np.cumsum(wt[order]) / wt.sum()
         med = float(lat[order][np.searchsorted(cum, 0.5)])
         p99 = float(lat[order][min(np.searchsorted(cum, 0.99), len(lat) - 1)])
-    return {"protocol": "rabia", "rate": rate_tx_s,
-            "throughput": committed / (sim_ms / 1000.0),
-            "median_ms": med, "p99_ms": p99, "committed": committed,
-            "timeline": timeline / 0.5}
+    out = {"protocol": "rabia", "rate": rate_tx_s,
+           "throughput": committed / (sim_ms / 1000.0),
+           "median_ms": med, "p99_ms": p99, "committed": committed,
+           "timeline": timeline / 0.5}
+    if tr is not None:
+        out["host_trace"] = {
+            "counts": tr.counts(),
+            "events": tr.events if cfg.trace_level == TraceLevel.FULL
+            else []}
+        out.update(host_phases(phases, wt))
+    if hmon.on(cfg.monitor_level):
+        # host twin of the device monitor: slots commit one batch each in
+        # strictly increasing slot time (a backwards commit would break
+        # prefix order), never more than was offered; NULL-round fraction
+        # is THE Rabia starvation gauge (the WAN-collapse mechanism)
+        offered = rate_tx_s * sim_ms / 1000.0
+        out["monitor"] = hmon.host_verdict(
+            violations={
+                "commit_once": int(committed > offered * 1.01 + 1.0),
+                "prefix": sum(1 for a, b in zip(commit_ts, commit_ts[1:])
+                              if b <= a),
+            },
+            gauges={"null_slots": int(null_slots),
+                    "null_frac": round(null_slots / max(slot_idx, 1), 4),
+                    "backlog": int(len(streams) - ptr)},
+            level=cfg.monitor_level)
+    return out

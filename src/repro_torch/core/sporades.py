@@ -15,7 +15,10 @@ Every state tensor carries a leading lane axis ``B``; matrices are
 [B, receiver, sender, ...]. Integer ``//`` and ``%`` are floor division and
 Python-style remainder, as in jnp; ``torch.argmax`` takes the first
 maximum, as ``jnp.argmax`` does; float-to-int casts truncate. The tick
-takes a Python-int ``t`` and does no host sync.
+takes a Python-int ``t`` and does no host sync. With tracing or
+monitoring on, the state also carries the layer's flight recorder
+(``tr``) and the monitor's IO gauges (``mon_io``), written at the end of
+the tick.
 """
 from __future__ import annotations
 
@@ -28,6 +31,8 @@ from repro_torch.configs.smr import SMRConfig
 from repro_torch.core import channel as ch
 from repro_torch.core import netsim
 from repro_torch.core.coin import coin_table
+from repro_torch.obs import monitor as hmon
+from repro_torch.obs import trace as obs
 
 RS = 1 << 14                    # rounds-per-view bound (rank key packing)
 MAX_VIEWS = 4096
@@ -64,7 +69,16 @@ def init_state(cfg: SMRConfig, n_ticks: int, batch: int = 1,
 
     z = lambda *s: full(s, 0, I32)  # noqa: E731
     coins = coin_table(MAX_VIEWS, n, device=dev)
+    # flight recorder and monitor IO: absent when off (see mandator)
+    extra = {}
+    tr = obs.init_trace(obs.DEFAULT_SPEC, cfg.trace_level, n,
+                        cfg.trace_events, B, dev)
+    if tr is not None:
+        extra["tr"] = tr
+    if hmon.on(cfg.monitor_level):
+        extra["mon_io"] = {"dropped": z(n)}
     return {
+        **extra,
         "v_cur": z(n), "r_cur": z(n),
         "is_async": full((n,), False, torch.bool),
         "bh_key": z(n), "bh_vc": z(n, n),
@@ -356,6 +370,30 @@ def tick(st: Dict, t: int, env: Dict, cfg: SMRConfig,
 
     ring = ch.ring_commit(spec, st["ring"], t, sends, drop=drop,
                           backend=cfg.channel_backend)
+
+    # ---- flight recorder + monitor IO (absent => not run) ---------------
+    # st[...] still holds the tick-entry values here (locals were rebound,
+    # the dict is only updated below), so the masks are true transitions.
+    tr = st.get("tr")
+    if tr is not None or "mon_io" in st:
+        sent_any = sends[0].mask
+        for snd in sends[1:]:
+            sent_any = sent_any | snd.mask
+        cut = (sent_any & drop).sum(dim=2)
+    if tr is not None:
+        vchg = v_cur != st["v_cur"]
+        st["tr"] = obs.record_env(
+            obs.DEFAULT_SPEC, tr, alive, t, a=v_cur, b=r_cur,
+            dropped_links=cut, events=(
+                ("view_change", vchg, v_cur, r_cur),
+                ("leader_change", vchg, _leader_of(v_cur, n), v_cur),
+                # sync<->async transitions: a=1 entering the async path
+                ("mode_switch", is_async != st["is_async"], is_async,
+                 v_cur),
+                ("commit", commit_key > st["commit_key"], commit_key,
+                 cvc.sum(dim=2))))
+    if "mon_io" in st:
+        st["mon_io"] = {"dropped": cut.int()}
 
     st.update(
         v_cur=v_cur, r_cur=r_cur, is_async=is_async, bh_key=bh_key,

@@ -7,10 +7,6 @@ compiled rate table the simulator reads, as a ``TableRate`` lookup, or
 None for the trivial §5.2 baseline, where callers keep their exact
 constant-rate code path.
 
-The port runs only the trivial workload so far: ``host_rate`` raises for
-any other, as the harness does for the scan protocols, until ROADMAP Queue
-A item 11 ports the windowed and closed-loop shapes. ``TableRate`` and
-``closed_equilibrium_rate`` are the reference's, kept for that item.
 
 Closed-loop workloads have no open offered rate; ``closed_equilibrium_rate``
 maps the sweep rate (= client population via Little's law) to the
@@ -58,16 +54,15 @@ def host_rate(cfg: SMRConfig, workload
               ) -> Tuple[Optional[TableRate], Optional[dict]]:
     """Returns (rate, closed): ``rate`` is a TableRate over the compiled
     table (None for the trivial baseline — callers keep their exact
-    constant-rate path), ``closed`` is None or {"think_ms", "cap"}.
-    Raises NotImplementedError for a non-trivial workload (ROADMAP Queue
-    A item 11)."""
+    constant-rate path), ``closed`` is None or {"think_ms", "cap"}."""
     tab = lower(cfg, as_workload(workload))
-    if not is_trivial(tab):
-        raise NotImplementedError(
-            "windowed and closed-loop workloads are not ported yet "
-            "(ROADMAP Queue A item 11); the analytic baselines run the "
-            "trivial §5.2 Poisson workload")
-    return None, None
+    closed = None
+    if float(tab["closed"]) > 0:
+        closed = {"think_ms": float(tab["think_ticks"]) * cfg.tick_ms,
+                  "cap": float(tab["cap"])}
+    if is_trivial(tab):
+        return None, None
+    return TableRate(cfg, tab), closed
 
 
 def closed_equilibrium_rate(rate_tx_s: float, closed: dict,

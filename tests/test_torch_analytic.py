@@ -2,8 +2,9 @@
 against the JAX package's: the rows of Fig 6's rate grids, through both
 sweep engines on one scenario, are equal exactly, keys and values (both
 are deterministic numpy). They touch no device, so they run with
-``device=None`` where torch sees no card; what the port does not run yet
-raises, naming its ROADMAP item."""
+``device=None`` where torch sees no card. They take every workload and
+trace/monitor level (tests/test_torch_workloads.py holds their rows under
+each library workload); what they cannot take — arrival tables — raises."""
 import numpy as np
 import pytest
 import torch
@@ -64,15 +65,25 @@ def test_analytic_models_touch_no_device(protocol):
 
 @pytest.mark.parametrize("protocol", experiment.ANALYTIC_PROTOCOLS)
 def test_analytic_unported_paths_raise(protocol):
+    """What raised before the flight recorder, the monitor and the
+    windowed workloads were ported now runs: tracing adds the phase
+    breakdown, monitoring a verdict, a windowed workload changes the
+    answer. Arrival tables still raise: the models draw none."""
     spec = SweepSpec(rates=(1_000,))
-    for cfg in (SMRConfig(trace_level="full"),
-                SMRConfig(monitor_level="full")):
-        with pytest.raises(NotImplementedError, match="item 13"):
-            run_sweep(protocol, cfg, spec)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        run_sweep(protocol, SMRConfig(), SweepSpec(
-            rates=(1_000,), workloads=(Workload("half",
-                                                (PoissonOpen(0.5),)),)))
+    base, = run_sweep(protocol, SMRConfig(), spec)
+    traced, = run_sweep(protocol, SMRConfig(trace_level="full"), spec)
+    assert len(traced["phase_med_ms"]) == 4
+    monitored, = run_sweep(protocol, SMRConfig(monitor_level="full"), spec)
+    assert monitored["monitor"]["ok"]
+    for r in (traced, monitored):
+        assert r["throughput"] == base["throughput"]
+    half, = run_sweep(protocol, SMRConfig(), SweepSpec(
+        rates=(1_000,), workloads=(Workload("half", (PoissonOpen(0.5),)),)))
+    assert half["workload"] == "half"
+    assert half["committed"] != base["committed"]
     with pytest.raises(ValueError, match="draws"):
         run_sweep(protocol, SMRConfig(), spec,
                   draws=np.zeros((1, 10_000, 5), np.float32))
+    with pytest.raises(ValueError, match="draws"):
+        run_sweep(protocol, SMRConfig(), spec,
+                  epochs=np.zeros((1, 5, 8), np.float64))

@@ -1,8 +1,8 @@
 """The port's batched sweep engine (repro_torch.core.experiment): a grid run
 as one B-lane dispatch equals the same points run one by one, bit for bit
 (the port's copy of tests/test_experiment.py's grid-vs-sequential
-property), and what the port does not run yet raises
-NotImplementedError."""
+property), and every protocol takes tracing, monitoring and any workload
+while a name that is no protocol or level raises."""
 import numpy as np
 import pytest
 
@@ -44,18 +44,26 @@ def test_grid_matches_sequential_runs():
                                    "multipaxos", "mandator"))
 def test_unported_paths_raise(proto):
     """Every scan protocol runs (see tests/test_torch_paxos.py,
-    tests/test_torch_mandator_alone.py); tracing, monitoring and
-    non-trivial workloads still raise, naming their ROADMAP items, and a
-    name that is no protocol raises ValueError."""
+    tests/test_torch_mandator_alone.py), and what raised
+    NotImplementedError before the flight recorder, the monitor and the
+    windowed workloads were ported now runs and adds its outputs; a name
+    that is no protocol, or no trace level, raises ValueError."""
+    cfg = SMRConfig(sim_seconds=0.2)
     spec = SweepSpec(rates=(10_000,))
-    for cfg in (SMRConfig(trace_level="full"),
-                SMRConfig(monitor_level="full")):
-        with pytest.raises(NotImplementedError, match="item 13"):
-            run_sweep(proto, cfg, spec, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        run_sweep(proto, CFG,
-                  SweepSpec(rates=(10_000,), workloads=(
-                      Workload("half", (PoissonOpen(0.5),)),)),
-                  device="cpu")
+    traced, = run_sweep(proto, SMRConfig(sim_seconds=0.2,
+                                         trace_level="full"), spec,
+                        device="cpu")
+    assert traced["phase_med_ms"].shape == (4,) and traced["obs"]
+    monitored, = run_sweep(proto, SMRConfig(sim_seconds=0.2,
+                                            monitor_level="full"), spec,
+                           device="cpu")
+    assert monitored["mon"]["viol"].shape == (6,)
+    half, = run_sweep(proto, cfg,
+                      SweepSpec(rates=(10_000,), workloads=(
+                          Workload("half", (PoissonOpen(0.5),)),)),
+                      device="cpu")
+    assert half["workload"] == "half"
     with pytest.raises(ValueError, match="not-a-protocol"):
         run_sweep("not-a-protocol", CFG, spec, device="cpu")
+    with pytest.raises(ValueError, match="trace_level"):
+        run_sweep(proto, SMRConfig(trace_level="loud"), spec, device="cpu")
