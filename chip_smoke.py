@@ -8,9 +8,10 @@ Run from the root of a checkout, with one card and no arguments:
 Phases, each printed as it ends; any failure exits non-zero:
 
   1. card   — nvidia-smi's name and power limit;
-  2. build  — nvcc builds the five kernels of csrc/ (channel_ring.cu,
+  2. build  — nvcc builds the six kernels of csrc/ (channel_ring.cu,
               rmsnorm.cu, flash_attention.cu, ssm_scan.cu,
-              decode_attention.cu, with the header tf32x3.cuh; sm_90a),
+              decode_attention.cu, with the header tf32x3.cuh, and
+              sketch_buckets.cu; sm_90a),
               all started together; build time, ptxas registers and
               spills, and each decode split kernel's CTAs per SM and
               dynamic shared memory;
@@ -33,7 +34,7 @@ Phases, each printed as it ends; any failure exits non-zero:
               run_sweep("mandator-sporades", SMRConfig(), 4 rates x 4
               seeds) = 16 lanes, n=5, 10 000 ticks, D=256, with the kernel
               on the path (launch counts read around this run only);
-  5. profile — ticks 500-700 of that grid run twice from one state,
+  5. profile — ticks 500-550 of that grid run twice from one state,
               untraced (wall per tick) and under torch.profiler (kernel
               launches per tick, device busy time per tick, the top
               kernels);
@@ -145,9 +146,10 @@ Phases, each printed as it ends; any failure exits non-zero:
               forward, flash's share of device time);
  15. workloads — windowed and closed-loop workloads, the flight recorder
               and the health monitor through the entry points: (a)
-              benchmarks/figures.py's workload matrix at its own 4 s: the
-              seven library workloads x {baseline, paper-ddos}, one 14-lane
-              grid per scan protocol (mandator-sporades, mandator-paxos and
+              benchmarks/figures.py's workload matrix, cut to its --quick
+              2 s for the script's time limit: the seven library
+              workloads x {baseline, paper-ddos}, one 14-lane grid per
+              scan protocol (mandator-sporades, mandator-paxos and
               mandator at 200k tx/s, multipaxos at 30k), with the
               channel_ring_commit launches counted around each grid alone
               and a profile of ticks 200-250 (ms/tick, launches/tick,
@@ -167,8 +169,26 @@ Phases, each printed as it ends; any failure exits non-zero:
               each batch's phase marks ordered and the rows' median and
               p99 recomputed from the marks' commit - arrival,
               a Chrome trace that validates, ms/tick on and off, and
-              launches/tick and busy share of ticks 100-150 on and off;
- 16. the card's line, the kernels line, then the result line.
+              launches/tick and busy share of ticks 100-125 on and off;
+ 16. reduced sweeps — the reduced path, run_sweep(..., mesh=1): (a) the
+              mandator-sporades Fig-6 grid (16 lanes x 10 000 ticks) with
+              every scalar (throughput, median_ms, p99_ms, committed,
+              async_frac, views) bit for bit equal to phase 4's rows, no
+              key of harness.REDUCED_DROPS and a [64] sketch; wall,
+              ms/tick and bytes read back per row, reduced vs
+              unreduced; 2 channel_ring_commit launches a tick and one
+              sketch_buckets launch, whose captured inputs then hold the
+              kernel against its plain version on the CPU (bit for bit)
+              and on the card (index_add_, within SKETCH_CARD_REL), with
+              its time, bound, the plain version's and index_add_'s
+              times; (b) the same for multipaxos against phase 6b's
+              rows; (c) 1 s of baseline and leader-crash-recover at
+              100k tx/s from one arrival table on the card and on the
+              CPU: sketch v and w bit for bit, each lane's sketch median
+              within 10% of the exact one (the reference test's band;
+              the p99 gap printed, unbounded); (d) grid_mesh past the
+              card count raises;
+ 17. the card's line, the kernels line, then the result line.
 
 It imports nothing of JAX and nothing of the JAX package. Float32 matrix
 products and convolutions run in full float32 (TF32 off).
@@ -553,8 +573,9 @@ def tick_profile(tag: str, protocol: str, rates, start: int,
 
 
 def phase_profile(results: dict) -> None:
-    """Phase 5: ticks 500-700 of the mandator-sporades Fig-6 grid."""
-    prof = tick_profile("profile", "mandator-sporades", FIG6_RATES, 500, 200)
+    """Phase 5: ticks 500-550 of the mandator-sporades Fig-6 grid (cut
+    from 500-700 to keep the script inside its time limit)."""
+    prof = tick_profile("profile", "mandator-sporades", FIG6_RATES, 500, 50)
     log("profile", f"the whole sweep: {results['wall_s'] / 10_000 * 1e3!r} "
                    "ms/tick")
     if prof is not None:
@@ -856,13 +877,14 @@ def phase_protocols(results: dict) -> None:
 # health monitor
 # ---------------------------------------------------------------------------
 
-# benchmarks/figures.py workload_matrix: its rates and length (4 s); the
+# benchmarks/figures.py workload_matrix: its rates, its length cut from 4 s
+# to the suite's --quick 2 s for the script's time limit; the
 # seven library workloads x {baseline, paper-ddos}, the analytic models on
 # the baseline only
 WL_RATES = {"mandator-sporades": 200_000, "mandator-paxos": 200_000,
             "mandator": 200_000, "multipaxos": 30_000}
 WL_ANALYTIC = {"epaxos": 8_000, "rabia": 800}
-WL_S = 4.0
+WL_S = 2.0
 # benchmarks/figures.py robustness: its rates over the ten library
 # scenarios, cut from 4 s to the suite's --quick 2 s for the script's time
 ROBUST_RATES = {"mandator-sporades": (50_000, 200_000),
@@ -946,7 +968,7 @@ def _phases_explain(r, cfg, ticks: int):
 
 def phase_workloads(results: dict) -> None:
     """Phase 15: (a) benchmarks/figures.py's workload matrix through the
-    port's entry point at its own 4 s; (b) kernel vs plain and card vs CPU
+    port's entry point at 2 s; (b) kernel vs plain and card vs CPU
     bit for bit on windowed and closed-loop grids from one arrival table
     and one epoch stream; (c) the robustness matrix with the flight
     recorder and the health monitor at full, against the same grid with
@@ -1086,9 +1108,9 @@ def phase_workloads(results: dict) -> None:
         trace = export.chrome_trace(on[i], cfg_on, proto,
                                     scenario=lib["paper-ddos"])
         export.validate(trace)
-        p_off = tick_profile("robustness", proto, None, 100, 50,
+        p_off = tick_profile("robustness", proto, None, 100, 25,
                              cfg=cfg_off, spec=spec)
-        p_on = tick_profile("robustness", proto, None, 100, 50, cfg=cfg_on,
+        p_on = tick_profile("robustness", proto, None, 100, 25, cfg=cfg_on,
                             spec=spec)
         per = lambda p, k: p[k] if p else float("nan")  # noqa: E731
         merged = monitor.merge_verdicts([monitor.verdict(r) for r in on])
@@ -1113,6 +1135,241 @@ def phase_workloads(results: dict) -> None:
                          "profile_on": p_on}
     out["robustness"] = robust
     log("time", f"workloads (c) {time.perf_counter() - t_part!r} s")
+
+
+# ---------------------------------------------------------------------------
+# phase 16: reduced sweeps (run_sweep(..., mesh=)), the on-device latency
+# sketch and its bucket-sum kernel
+# ---------------------------------------------------------------------------
+
+# the scalars of a row the reduced path must keep bit for bit
+REDUCED_SCALARS = ("throughput", "median_ms", "p99_ms", "committed")
+# the reference test's band between the sketch's median and the exact one
+# (tests/test_sharded.py: pytest.approx(rel=0.1))
+SKETCH_MEDIAN_REL = 0.1
+# the bucket sums against index_add_ on the card, relative: the atomics add
+# a bucket's terms in another order, each add rounding by half an ulp
+# (2^-24), over at most a few hundred nonzero terms a bucket
+SKETCH_CARD_REL = 1e-4
+
+
+def row_bytes(row: dict) -> int:
+    """Bytes a row carries back from the device: its arrays' and its
+    numeric scalars' (float32 / int32, 4 bytes each)."""
+    import numpy as np
+    total = 0
+    for k, v in row.items():
+        if isinstance(v, dict):
+            total += row_bytes(v)
+        elif isinstance(v, np.ndarray):
+            total += v.nbytes
+        elif isinstance(v, (int, float)) and k not in ("rate", "seed"):
+            total += 4
+    return total
+
+
+class _CaptureBuckets:
+    """Keeps a copy of the inputs of every bucket-sum launch the sketch
+    makes while active (the wrapper still launches and counts)."""
+
+    def __enter__(self):
+        from repro_torch.kernels.sketch_buckets import kernel
+        self.kernel, self.orig, self.calls = kernel, \
+            kernel.bucket_sums_cuda, []
+
+        def capture(b, w, wv, bins):
+            self.calls.append((b.clone(), w.clone(), wv.clone(), bins))
+            return self.orig(b, w, wv, bins)
+
+        kernel.bucket_sums_cuda = capture
+        return self
+
+    def __exit__(self, *exc):
+        self.kernel.bucket_sums_cuda = self.orig
+
+
+def sketch_bound_ms(b, w) -> float:
+    """Least time of one bucket-sum launch on these inputs: w and wv read
+    once (8 bytes an entry), each (lane, bucket)'s two binary searches of
+    b (4 bytes a probe) and its two sums written (8 bytes), at 3.35 TB/s.
+    The adds (two a nonzero entry) are a few thousand operations."""
+    lanes, m = b.shape
+    bins = 64
+    probes = 2 * math.ceil(math.log2(m + 1))
+    nbytes = 8 * lanes * m + lanes * bins * (4 * probes + 8)
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def check_sketch_kernel(call, tag: str) -> dict:
+    """One captured launch's inputs: the kernel against its plain version
+    on the CPU (bit for bit: both add in index order) and on the card
+    (index_add_ by atomics: within SKETCH_CARD_REL of the sums), then the
+    kernel's, the plain version's and one index_add_'s times."""
+    import torch
+    from repro_torch.kernels.sketch_buckets import kernel
+    from repro_torch.kernels.sketch_buckets.ref import bucket_sums_ref
+
+    b, w, wv, bins = call
+    lanes, m = b.shape
+    got = kernel.bucket_sums_cuda(b, w, wv, bins)
+    cpu = bucket_sums_ref(b.cpu(), w.cpu(), wv.cpu(), bins)
+    card = bucket_sums_ref(b, w, wv, bins)
+    # torch's max keeps a NaN; the sums of finite terms must be finite
+    err_cpu = float(torch.cat([(g.cpu() - c).abs().reshape(-1)
+                               for g, c in zip(got, cpu)]).max())
+    if not math.isfinite(err_cpu):
+        raise AssertionError(f"{tag}: sketch bucket sums not finite")
+    err = 0.0
+    for g, c, a in zip(got, cpu, card):
+        g = g.cpu()
+        if not torch.equal(g.view(torch.int32), c.view(torch.int32)):
+            raise AssertionError(f"{tag}: sketch bucket sums differ from "
+                                 "the plain version on the CPU")
+        err = max(err, float((g - a.cpu()).abs().max()))
+        rel = float(((g - a.cpu()).abs() / c.abs().clamp(min=1e-30))
+                    .max())
+        if rel > SKETCH_CARD_REL:
+            raise AssertionError(f"{tag}: kernel vs index_add_ on the card "
+                                 f"{rel} relative")
+    flat = (b.long() + bins * torch.arange(lanes, device=b.device)[:, None]
+            ).reshape(-1)
+    src = torch.stack([w.reshape(-1), wv.reshape(-1)], dim=1)
+    acc = torch.zeros(lanes * bins, 2, device=b.device)
+    ms = device_ms(lambda: kernel.bucket_sums_cuda(b, w, wv, bins))
+    plain_ms = device_ms(lambda: bucket_sums_ref(b, w, wv, bins))
+    lib_ms = device_ms(lambda: acc.zero_().index_add_(0, flat, src))
+    nonzero = int((w != 0).sum())
+    bound = sketch_bound_ms(b, w)
+    log("reduced", f"{tag}: sketch_buckets [{lanes}, {m}] ({nonzero} "
+                   f"nonzero weights): kernel == plain on the CPU bit for "
+                   f"bit; vs index_add_ on the card max abs {err!r}; "
+                   f"{ms!r} ms per launch (bound {bound!r} ms, bytes), "
+                   f"plain {plain_ms!r} ms, index_add_ {lib_ms!r} ms")
+    return {"shape": [lanes, m], "nonzero": nonzero, "ms": ms,
+            "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound,
+            "max_abs_err": err_cpu, "max_abs_err_card_plain": err}
+
+
+def phase_reduced(results: dict) -> None:
+    """(a) the mandator-sporades Fig-6 grid and (b) the multipaxos one
+    through run_sweep(..., mesh=1) against phases 4 and 6b's unreduced
+    rows; (c) the sketch on the card against the CPU; (d) grid_mesh past
+    the card count raises."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.smr import SMRConfig
+    from repro_torch.core import harness
+    from repro_torch.core.experiment import SweepSpec, run_sweep
+    from repro_torch.distributed import mesh as dmesh
+    from repro_torch.distributed import sketch
+    from repro_torch.scenarios import library
+
+    out = results.setdefault("reduced", {})
+    cfg = SMRConfig()
+    ticks = int(cfg.sim_seconds * 1000 / cfg.tick_ms)
+    full_walls = {"mandator-sporades": results["wall_s"],
+                  "multipaxos": results["protocols"]["multipaxos"]["wall_s"]}
+    for part, (proto, rates) in zip("ab", (
+            ("mandator-sporades", FIG6_RATES),
+            ("multipaxos", PAXOS_FIG6["multipaxos"]))):
+        spec = SweepSpec(rates=rates, seeds=FIG6_SEEDS)
+        with _CaptureBuckets() as cap:
+            torch.cuda.synchronize()
+            _reset_counts()
+            t0 = time.perf_counter()
+            rows = run_sweep(proto, cfg, spec, mesh=1)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = _counts()
+        full = results["fig6_rows"][proto]
+        leaves = REDUCED_SCALARS + (("async_frac", "views")
+                                    if proto == "mandator-sporades" else ())
+        names = [f"{r['rate']:.0f}/{r['seed']}" for r in rows]
+        _assert_same(rows, full, names, f"({part}) {proto} reduced vs "
+                     "unreduced", leaves, same_keys=False)
+        for r, name in zip(rows, names):
+            dropped = set(harness.REDUCED_DROPS) & set(r)
+            if dropped:
+                raise AssertionError(f"({part}) {proto} {name}: reduced row "
+                                     f"carries {sorted(dropped)}")
+            for k in ("v", "w"):
+                if r["sketch"][k].shape != (sketch.SKETCH_BINS,):
+                    raise AssertionError(f"({part}) {proto} {name}: sketch "
+                                         f"{k} {r['sketch'][k].shape}")
+        _check_launches(proto, counts["channel_ring_commit"], ticks,
+                        f"({part}) reduced")
+        if counts["sketch_buckets"] != 1 or len(cap.calls) != 1:
+            raise AssertionError(f"({part}) {proto}: expected 1 "
+                                 f"sketch_buckets launch, got {counts}")
+        red_b = statistics.mean(row_bytes(r) for r in rows)
+        full_b = statistics.mean(row_bytes(r) for r in full)
+        meds = [sketch.quantile_np(r["sketch"]["v"], r["sketch"]["w"], 0.5)
+                for r in rows]
+        log("reduced", f"({part}) {proto} Fig-6 grid through "
+                       f"run_sweep(mesh=1): {len(rows)} lanes x {ticks} "
+                       f"ticks: wall {wall!r} s, {wall / ticks * 1e3!r} "
+                       f"ms/tick (unreduced {full_walls[proto]!r} s, "
+                       f"{full_walls[proto] / ticks * 1e3!r} ms/tick); "
+                       f"launches {counts['channel_ring_commit']} "
+                       f"channel_ring_commit, {counts['sketch_buckets']} "
+                       f"sketch_buckets; {', '.join(leaves)} bitwise equal "
+                       f"to the unreduced rows; bytes read back per row "
+                       f"{red_b!r} reduced, {full_b!r} unreduced; sketch "
+                       "medians vs exact: " + ", ".join(
+                           f"{m!r}/{r['median_ms']!r}"
+                           for m, r in zip(meds, rows)))
+        out[proto] = {"wall_s": wall, "ms_per_tick": wall / ticks * 1e3,
+                      "unreduced_wall_s": full_walls[proto],
+                      "launches": counts, "row_bytes": red_b,
+                      "unreduced_row_bytes": full_b,
+                      "kernel": check_sketch_kernel(cap.calls[0],
+                                                    f"({part}) {proto}")}
+
+    # (c) the sketch on the card against the CPU, 1 s of baseline and
+    # leader-crash-recover at 100k tx/s from one arrival table
+    names = ("baseline", "leader-crash-recover")
+    cfg = SMRConfig(sim_seconds=1.0)
+    spec = SweepSpec(rates=(100_000,), scenarios=tuple(
+        library.get(x, cfg.sim_seconds) for x in names))
+    rng = np.random.RandomState(0)
+    draws = rng.poisson(20.0, (len(names), 1000, 5)).astype(np.float32)
+    card = run_sweep("mandator-sporades", cfg, spec, draws=draws, mesh=1)
+    cpu = run_sweep("mandator-sporades", cfg, spec, draws=draws,
+                    mesh=[torch.device("cpu")])
+    _assert_same(card, cpu, names, "(c) sketch card vs cpu",
+                 REDUCED_SCALARS + ("async_frac", "views"))
+    gaps = []
+    for r, c, name in zip(card, cpu, names):
+        for k in ("v", "w"):
+            a, b = (np.asarray(x["sketch"][k], np.float32).view(np.uint32)
+                    for x in (r, c))
+            if not np.array_equal(a, b):
+                raise AssertionError(f"(c) {name}: sketch {k} differs, card "
+                                     "vs CPU")
+        med = sketch.quantile_np(r["sketch"]["v"], r["sketch"]["w"], 0.5)
+        p99 = sketch.quantile_np(r["sketch"]["v"], r["sketch"]["w"], 0.99)
+        gap = (med - r["median_ms"]) / r["median_ms"]
+        gap99 = (p99 - r["p99_ms"]) / r["p99_ms"]
+        log("reduced", f"(c) {name} 1 s @100k: sketch v, w bitwise equal "
+                       f"card vs CPU; median {r['median_ms']!r} ms, sketch "
+                       f"{med!r} (gap {gap!r}, band {SKETCH_MEDIAN_REL}); "
+                       f"p99 {r['p99_ms']!r}, sketch {p99!r} (gap "
+                       f"{gap99!r}, no band)")
+        if not abs(gap) <= SKETCH_MEDIAN_REL:
+            raise AssertionError(f"(c) {name}: sketch median {med} off the "
+                                 f"exact {r['median_ms']}")
+        gaps.append({"scenario": name, "median_gap": gap, "p99_gap": gap99})
+    out["sketch_vs_exact"] = gaps
+
+    # (d) no silent CPU and no phantom card
+    n_dev = torch.cuda.device_count()
+    try:
+        dmesh.grid_mesh(n_dev + 1)
+    except ValueError as e:
+        log("reduced", f"(d) grid_mesh({n_dev + 1}) on {n_dev} card(s) "
+                       f"raises: {e}")
+    else:
+        raise AssertionError(f"grid_mesh({n_dev + 1}) did not raise")
 
 
 # ---------------------------------------------------------------------------
@@ -1461,9 +1718,10 @@ def _kernel_modules() -> dict:
     from repro_torch.kernels.decode_attention import kernel as dk
     from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.kernels.rmsnorm import kernel as rk
+    from repro_torch.kernels.sketch_buckets import kernel as bk
     from repro_torch.kernels.ssm_scan import kernel as sk
     return {"channel_ring_commit": ck, "rmsnorm": rk, "flash_attention": fk,
-            "ssm_scan": sk, "decode_attention": dk}
+            "ssm_scan": sk, "decode_attention": dk, "sketch_buckets": bk}
 
 
 def _reset_counts():
@@ -2224,6 +2482,8 @@ def kernel_entries(results: dict) -> list:
     flash16 = _case(results["flash"], "smollm-prefill-bf16")
     ssm16 = _case(results["ssm"], "jamba-mixer-bf16")
     dec16 = _case(results["decode_attention"], "qwen3-14b-full-bf16")
+    red = results["reduced"]
+    sk = red["mandator-sporades"]["kernel"]
     return [{
         "name": "channel_ring_commit",
         "route": "cuda",
@@ -2248,6 +2508,8 @@ def kernel_entries(results: dict) -> list:
                                      "mandator")},
         "workload_matrix": results["workloads"]["matrix"],
         "robustness_telemetry": results["workloads"]["robustness"],
+        "launches_reduced": {p: red[p]["launches"]["channel_ring_commit"]
+                             for p in ("mandator-sporades", "multipaxos")},
     }, {
         "name": "rmsnorm",
         "route": "cuda",
@@ -2327,6 +2589,24 @@ def kernel_entries(results: dict) -> list:
         "bound_ms_bf16": dec16["bound_ms"],
         "path": results["decode_attention_path"],
         "cases": results["decode_attention"],
+    }, {
+        "name": "sketch_buckets",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/sketch_buckets.cu",
+        # no Pallas kernel stands behind it: the reference's jnp
+        # scatter-adds of the sketch's buckets
+        "replaces": "src/repro/distributed/sketch.py:47",
+        "replaces_kind": "jnp (no pallas_call)",
+        "launches": red["mandator-sporades"]["launches"]["sketch_buckets"],
+        "max_abs_err": sk["max_abs_err"],
+        "ms": sk["ms"],
+        "plain_ms": sk["plain_ms"],
+        "bound_ms": sk["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": sk["library_ms"],
+        "max_abs_err_card_plain": sk["max_abs_err_card_plain"],
+        "multipaxos": red["multipaxos"]["kernel"],
+        "reduced_sweeps": red,
     }]
 
 
@@ -2401,6 +2681,7 @@ def main() -> int:
     timed("mamba", phase_mamba, results)
     timed("prefill bf16", phase_prefill_bf16, results)
     timed("workloads", phase_workloads, results)
+    timed("reduced sweeps", phase_reduced, results)
 
     kernels = kernel_entries(results)
     print(card)

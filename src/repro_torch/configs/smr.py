@@ -33,6 +33,8 @@ _RTT_MS = np.array([
     [  12,   85,  195,  125,  145,   50,    1,  200,  190],  # ohio
     [ 215,  175,   60,  325,   70,  165,  200,    1,   90],  # singapore
     [ 200,  260,  220,  310,  105,  140,  190,   90,    1],  # sydney
+    # lint: allow(dtype-hygiene): the host-side RTT table of §5.1;
+    # delays_ms() hands the simulator float32
 ], dtype=np.float64)
 
 

@@ -8,7 +8,9 @@ pre-generates the coins of every view once per ``init_state``, so the draw
 never enters the tick.
 
 ``partitionable`` selects JAX's ``jax_threefry_partitionable`` bit stream
-(the default of current JAX) or the older one.
+(the default of current JAX) or the older one. ``common_coin_flip`` draws
+one view's coin on the host, for the training control plane
+(``runtime/sporades_rt.py``).
 """
 from __future__ import annotations
 
@@ -86,6 +88,14 @@ def randint(key, n: int, partitionable: bool = True) -> np.ndarray:
     mult = np.uint32((int(mult) * int(mult)) % n)
     off = ((hi % span) * mult + lo % span) % span
     return off.astype(np.int32)
+
+
+def common_coin_flip(v: int, n: int, seed: int = 0) -> np.int32:
+    """Deterministic uniform int in [0, n) for view ``v``: the reference's
+    ``common_coin_flip`` (``randint(fold_in(PRNGKey(seed), v), (), 0, n)``)
+    as a numpy int32, equal to ``coin_table_np(V, n, seed)[v]``."""
+    key = fold_in(prng_key(seed), np.uint32(v))
+    return randint(key, n)
 
 
 def coin_table_np(max_views: int, n: int, seed: int = 0,

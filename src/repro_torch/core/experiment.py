@@ -26,6 +26,15 @@ on the host behind the same API, and touch no device.
 runs the grid before it returns: the host loop over ticks is what drives
 the device, so there is nothing left to overlap with a later dispatch.
 ``collect()`` only hands the rows over.
+
+**The reduced path** (``mesh=``, the reference's sharded sweep engine):
+the flattened grid's lanes split over a grid of devices
+(``distributed/mesh.py``) in contiguous blocks, padded to a multiple of
+the device count by repeating the last real point; each block runs
+through ``harness.sim_point(..., reduced=True)`` on its device, and the
+pad is sliced off the rows. The rows carry the same scalars, bit for bit,
+without ``harness.REDUCED_DROPS``, plus a 64-bin latency ``sketch``. The
+blocks run one after another from this process's host loop.
 """
 from __future__ import annotations
 
@@ -44,6 +53,7 @@ from repro_torch.configs.smr import SMRConfig
 from repro_torch.core import harness, netsim
 from repro_torch.core.epaxos import run_epaxos_model
 from repro_torch.core.rabia import run_rabia_model
+from repro_torch.distributed import mesh as dmesh
 
 ANALYTIC_PROTOCOLS = ("epaxos", "rabia")
 _ANALYTIC_MODELS = {"epaxos": run_epaxos_model, "rabia": run_rabia_model}
@@ -100,8 +110,9 @@ def _lower(cfg: SMRConfig, spec: SweepSpec, device: torch.device):
     cfg = netsim.resolve_horizon(cfg, tabs=stabs)
     mode = wlc.mode_of([wlc.lower(cfg, w) for w in spec.workloads])
     env_b = netsim.stack_envs([envs[fi] for _, _, fi, _ in pts])
-    # per-replica Poisson rate per tick, computed in float64 on the host
-    # so that a batched grid and a single point see identical inputs
+    # lint: allow(dtype-hygiene): per-replica Poisson rate per tick,
+    # computed in float64 on the host and cast to float32, so that a
+    # batched grid and a single point see identical inputs
     rate_b = (np.array([r for r, _, _, _ in pts], np.float64)
               * cfg.tick_ms / 1000.0 / cfg.n_replicas).astype(np.float32)
     seed_b = [s for _, s, _, _ in pts]
@@ -133,14 +144,15 @@ class PendingSweep:
         return self._results
 
 
-# per-point metric arrays every scan protocol returns
+# per-point arrays: the timelines and per-origin quantiles every scan
+# protocol returns unreduced; closed-loop in-flight high water and the
+# flight recorder's phase breakdown (absent at trace_level off). The
+# reduced path returns none of harness.REDUCED_DROPS.
 _ROW_ARRAYS = ("timeline", "origin_median_ms", "origin_p99_ms",
-               "origin_timeline", "origin_lat_ms_timeline")
-# per-point arrays present in some modes only: closed-loop in-flight high
-# water, the flight recorder's phase breakdown (absent at trace_level off)
-_ROW_OPTIONAL = ("inflight_max", "phase_med_ms", "phase_p99_ms",
-                 "phase_origin_med_ms", "phase_origin_p99_ms",
-                 "batch_marks_t", "batch_arr_t", "batch_n")
+               "origin_timeline", "origin_lat_ms_timeline",
+               "inflight_max", "phase_med_ms", "phase_p99_ms",
+               "phase_origin_med_ms", "phase_origin_p99_ms",
+               "batch_marks_t", "batch_arr_t", "batch_n")
 
 
 def _to_numpy(tree):
@@ -155,6 +167,23 @@ def _lane(tree, i: int):
     return tree[i]
 
 
+def _take(tree, idx):
+    """Lanes ``idx`` (a slice or an index array) of a tree of [B, ...]
+    tensors or arrays; None stays None."""
+    if isinstance(tree, dict):
+        return {k: _take(v, idx) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        return tree[idx if isinstance(idx, slice)
+                    else torch.as_tensor(idx, device=tree.device)]
+    return None if tree is None else np.asarray(tree)[idx]
+
+
+def _concat(trees):
+    if isinstance(trees[0], dict):
+        return {k: _concat([t[k] for t in trees]) for k in trees[0]}
+    return np.concatenate(trees, axis=0)
+
+
 def _analytic_rows(protocol: str, cfg: SMRConfig, spec: SweepSpec,
                    wl_names: List[str]) -> List[Dict]:
     model = _ANALYTIC_MODELS[protocol]
@@ -167,16 +196,39 @@ def _analytic_rows(protocol: str, cfg: SMRConfig, spec: SweepSpec,
     return rows
 
 
+def _blocks(n_real: int, n_dev: int):
+    """The lane indices of each device's contiguous block: the grid padded
+    to a multiple of ``n_dev`` by repeating its last point."""
+    idx = np.concatenate([np.arange(n_real),
+                          np.full((-n_real) % n_dev, n_real - 1)])
+    return np.split(idx.astype(np.int64), n_dev)
+
+
 def _scan_rows(protocol: str, cfg: SMRConfig, spec: SweepSpec,
-               wl_names: List[str], device, draws, epochs) -> List[Dict]:
-    dev = _device.resolve(device)
+               wl_names: List[str], device, draws, epochs,
+               mesh=None) -> List[Dict]:
+    devices = dmesh.as_grid_mesh(mesh)
+    reduced = devices is not None
+    if reduced and device is not None:
+        raise ValueError("pass either device= or mesh=: a mesh names the "
+                         "devices of the reduced path")
+    if not reduced:
+        devices = [_device.resolve(device)]
     t0 = time.perf_counter()
-    pts, cfg, mode, env_b, rate_b, seed_b = _lower(cfg, spec, dev)
+    pts, cfg, mode, env_b, rate_b, seed_b = _lower(cfg, spec, devices[0])
     harness.check_supported(protocol, cfg, mode)
-    out = harness.sim_point(protocol, cfg, env_b, rate_b.tolist(), seed_b,
-                            draws=draws, mode=mode, device=dev,
-                            wlt=_lower_workloads(cfg, spec), epochs=epochs)
-    out = _to_numpy(out)
+    wlt = _lower_workloads(cfg, spec)
+    seed_b = np.asarray(seed_b)
+    blocks = (_blocks(len(pts), len(devices)) if reduced
+              else [slice(None)])
+    outs = [_to_numpy(harness.sim_point(
+        protocol, cfg, _take(env_b, blk), rate_b[blk].tolist(),
+        seed_b[blk].tolist(), draws=_take(draws, blk), mode=mode,
+        device=dev, wlt=_take(wlt, blk), epochs=_take(epochs, blk),
+        reduced=reduced)) for dev, blk in zip(devices, blocks)]
+    # the pad's rows (repeats of the last real point) go
+    out = _take(outs[0] if len(outs) == 1 else _concat(outs),
+                slice(len(pts)))
     stats = _TIMING.setdefault(protocol, {"run_s": 0.0, "horizon": 0})
     stats["run_s"] += time.perf_counter() - t0
     stats["horizon"] = int(cfg.delay_horizon_ticks)
@@ -189,18 +241,17 @@ def _scan_rows(protocol: str, cfg: SMRConfig, spec: SweepSpec,
                    "p99_ms": float(out["p99_ms"][i]),
                    "committed": float(out["committed"][i])}
         for k in _ROW_ARRAYS:
-            r[k] = out[k][i]
+            if k in out:
+                r[k] = out[k][i]
         if protocol == "mandator-sporades":
             r["async_frac"] = float(out["async_frac"][i])
             r["views"] = int(out["views"][i])
-            r["cvc_all"] = out["cvc_all"][i]
-            r["commit_key"] = out["commit_key"][i]
-        for k in _ROW_OPTIONAL:
-            if k in out:
-                r[k] = out[k][i]
-        # the flight recorder's rings and the health monitor's gauges
-        # (absent when their levels are off)
-        for k in ("obs", "mon"):
+            for k in ("cvc_all", "commit_key"):
+                if k in out:
+                    r[k] = out[k][i]
+        # the reduced path's sketch, the flight recorder's rings and the
+        # health monitor's gauges (absent when unreduced or off)
+        for k in ("sketch", "obs", "mon"):
             if k in out:
                 r[k] = _lane(out[k], i)
         results.append(r)
@@ -208,7 +259,8 @@ def _scan_rows(protocol: str, cfg: SMRConfig, spec: SweepSpec,
 
 
 def dispatch_sweep(protocol: str, cfg: SMRConfig, spec: SweepSpec,
-                   device=None, draws=None, epochs=None) -> PendingSweep:
+                   device=None, draws=None, epochs=None, mesh=None,
+                   canonical: bool = True) -> PendingSweep:
     """Run the grid and return it as a ``PendingSweep``. Scan protocols
     (``harness.PROTOCOLS``) run as one batched dispatch of B lanes on
     ``device`` (None = CUDA, raises without one; or e.g. "cpu"), under
@@ -216,7 +268,14 @@ def dispatch_sweep(protocol: str, cfg: SMRConfig, spec: SweepSpec,
     optional [B, T, n] arrival table) and ``epochs`` (an optional
     [B, n, M] epoch stream of the closed lanes) replace their per-lane
     torch draws (see ``harness.sim_point``). The analytic baselines
-    (``ANALYTIC_PROTOCOLS``) loop on the host and take neither."""
+    (``ANALYTIC_PROTOCOLS``) loop on the host and take neither.
+
+    ``mesh`` selects the reduced path (module docstring): an int (the
+    first N CUDA devices) or a sequence of devices
+    (``distributed.mesh.as_grid_mesh``); ``device`` must then be None.
+    Analytic protocols ignore it. ``canonical`` is accepted for the
+    reference's signature and ignored: the port compiles no program whose
+    shapes it would pin."""
     wl_names = [wlc.as_workload(w).name for w in spec.workloads]
     if protocol in ANALYTIC_PROTOCOLS:
         if draws is not None or epochs is not None:
@@ -225,14 +284,16 @@ def dispatch_sweep(protocol: str, cfg: SMRConfig, spec: SweepSpec,
         return PendingSweep(protocol,
                             _analytic_rows(protocol, cfg, spec, wl_names))
     return PendingSweep(protocol, _scan_rows(protocol, cfg, spec, wl_names,
-                                             device, draws, epochs))
+                                             device, draws, epochs, mesh))
 
 
 def run_sweep(protocol: str, cfg: SMRConfig, spec: SweepSpec, device=None,
-              draws=None, epochs=None) -> List[Dict]:
+              draws=None, epochs=None, mesh=None,
+              canonical: bool = True) -> List[Dict]:
     """Run the whole grid; returns one result dict per point, in
     ``spec.points()`` order, with the keys of the reference's
-    ``PendingSweep.collect`` for this protocol. See ``dispatch_sweep`` for
-    ``device``, ``draws`` and ``epochs``."""
-    return dispatch_sweep(protocol, cfg, spec, device, draws,
-                          epochs).collect()
+    ``PendingSweep.collect`` for this protocol (its reduced keys with
+    ``mesh``). See ``dispatch_sweep`` for ``device``, ``draws``,
+    ``epochs``, ``mesh`` and ``canonical``."""
+    return dispatch_sweep(protocol, cfg, spec, device, draws, epochs, mesh,
+                          canonical).collect()

@@ -20,6 +20,13 @@ protocol ticks); so does every ``trace_level`` (the layers' flight
 recorders, ``_phase_breakdown``) and ``monitor_level`` (the health
 monitor, fed by ``_monitor_views``). Recording and monitoring only read
 the protocol state, so the metrics do not depend on either level.
+
+``sim_point(..., reduced=True)`` is the reduced sweep path's metric
+contract (``experiment.run_sweep(..., mesh=...)``): the scalars keep the
+unreduced run's operations, so they are bitwise equal to it; the
+per-batch and per-tick arrays of ``REDUCED_DROPS`` are neither recorded
+nor computed, and a 64-bin latency ``sketch`` (``distributed/sketch.py``)
+takes their place.
 """
 from __future__ import annotations
 
@@ -33,12 +40,25 @@ from repro_torch.configs.smr import SMRConfig
 from repro_torch.core import channel as ch
 from repro_torch.core import mandator, netsim, paxos, sporades
 from repro_torch.core import workload as wlmod
+from repro_torch.distributed import sketch as dsketch
 from repro_torch.obs import monitor as hmon
 from repro_torch.obs import trace as obs
 from repro_torch.workloads.compile import TRIVIAL_MODE, WorkloadMode
 
 PROTOCOLS = ("mandator-sporades", "mandator-paxos", "multipaxos",
              "mandator")
+
+# Per-batch / per-tick output arrays whose size scales with the grid's
+# record capacity: the reduced sweep path (experiment.py, ``mesh=``)
+# trades them for the O(SKETCH_BINS) latency sketch. Scalar metrics are
+# untouched: ``reduced`` computes them with the same operations.
+REDUCED_DROPS = ("timeline", "origin_median_ms", "origin_p99_ms",
+                 "origin_timeline", "origin_lat_ms_timeline",
+                 "cvc_all", "commit_key",
+                 "batch_marks_t", "batch_arr_t", "batch_n")
+# A lane's in-window weight must stay below this for the sketch's running
+# sums to be exact in float32 on every device (distributed/sketch.py)
+SKETCH_EXACT_WEIGHT = 2 ** 24
 
 
 def check_supported(protocol: str, cfg: SMRConfig,
@@ -237,12 +257,15 @@ def step(carry: Dict, t: int, draws, env: Dict, cfg: SMRConfig,
     return _tick(carry, t, _arrivals(draws), env, cfg, protocol, grace)[0]
 
 
-def _trace_leaves(protocol: str, cfg: SMRConfig) -> Dict:
+def _trace_leaves(protocol: str, cfg: SMRConfig,
+                  reduced: bool = False) -> Dict:
     """The per-tick trace of ``protocol``: {name: (per-lane shape, dtype,
     function of the carry)}. ``cvc`` is the cluster max committed VC;
     with tracing on, the Mandator compositions add ``own_round`` and
     mandator-paxos each origin's own committed-VC view ``cvc_own`` (the
-    phase breakdown's stability and delivery boundaries)."""
+    phase breakdown's stability and delivery boundaries). ``reduced``
+    leaves out mandator-sporades' ``commit_key`` and, unless the phase
+    breakdown reads it, ``cvc_all`` (``REDUCED_DROPS``)."""
     n = cfg.n_replicas
     i32 = torch.int32
     own = {"own_round": ((n,), i32, lambda c: c["m"]["own_round"])}
@@ -266,6 +289,10 @@ def _trace_leaves(protocol: str, cfg: SMRConfig) -> Dict:
               "v_cur": ((n,), i32, lambda c: c["s"]["v_cur"])}
     if traced:
         leaves.update(own)
+    if reduced:
+        del leaves["commit_key"]
+        if not traced:
+            del leaves["cvc_all"]
     return leaves
 
 
@@ -287,14 +314,15 @@ def init_run(protocol: str, cfg: SMRConfig, n_ticks: int, env: Dict,
 
 
 def _scan_body(protocol: str, cfg: SMRConfig, n_ticks: int, env: Dict,
-               draws, batch: int, device: torch.device):
+               draws, batch: int, device: torch.device,
+               reduced: bool = False):
     """The tick loop. ``draws``: a [B, T, n] draw table (trivial mode) or
     a ``workload.Arrivals``. Returns (final carry, trace) with trace
     leaves [B, T, ...] (``_trace_leaves``, plus ``inflight`` [B, T, n] in
     closed mode)."""
     arr = _arrivals(draws)
     carry, grace = init_run(protocol, cfg, n_ticks, env, arr, batch, device)
-    leaves = _trace_leaves(protocol, cfg)
+    leaves = _trace_leaves(protocol, cfg, reduced)
     trace = {k: torch.empty((batch, n_ticks, *shape), dtype=dtype,
                             device=device)
              for k, (shape, dtype, _) in leaves.items()}
@@ -321,6 +349,8 @@ def _weighted_quantile(vals: torch.Tensor, weights: torch.Tensor,
     order = torch.argsort(vals, dim=-1, stable=True)
     v = torch.gather(vals, -1, order)
     w = torch.gather(weights, -1, order)
+    # lint: allow(dtype-hygiene): exact running sums of float32
+    # weights (order-free on every device; ROADMAP Queue C, PR 16)
     cum = torch.cumsum(w.double(), dim=-1).float()
     tot = cum[..., -1:]
     cdf = cum / torch.where(tot > 0, tot, 1.0)
@@ -333,9 +363,12 @@ def _weighted_quantile(vals: torch.Tensor, weights: torch.Tensor,
 
 
 def _batch_metrics(cfg: SMRConfig, create_t, arr_mean, count, commit_t,
-                   warmup_frac=0.15, bucket_ms=500.0) -> Dict:
+                   warmup_frac=0.15, bucket_ms=500.0,
+                   reduced: bool = False) -> Dict:
     """Metrics over batch records [B, n, R] (ticks -> ms via cfg.tick_ms),
-    on the device, per lane.
+    on the device, per lane. ``reduced`` returns the scalars alone
+    (throughput, median_ms, p99_ms, committed), computed by the same
+    operations; the timelines and per-origin quantiles are not computed.
 
     The sums of float32 terms (throughput, committed, the timelines and
     the per-origin latency sums) are taken in float64 and rounded once to
@@ -357,6 +390,8 @@ def _batch_metrics(cfg: SMRConfig, create_t, arr_mean, count, commit_t,
     if win_s > 0:
         # a tensor divisor: CUDA divides by a Python scalar as a product
         # with its float32 reciprocal, one ulp off the CPU's quotient
+        # lint: allow(dtype-hygiene): exact sum of float32 counts,
+        # rounded once (ROADMAP Queue C, PR 16)
         tot = w.double().sum(dim=1).float()
         tput = tot / torch.full_like(tot, win_s)
     else:
@@ -364,13 +399,21 @@ def _batch_metrics(cfg: SMRConfig, create_t, arr_mean, count, commit_t,
     lat_flat = lat_ms.reshape(B, -1)
     med = _weighted_quantile(lat_flat, w, 0.5)
     p99 = _weighted_quantile(lat_flat, w, 0.99)
+    cnt_ok = torch.where(ok, count, 0.0)
+    # lint: allow(dtype-hygiene): exact sum of float32 counts,
+    # rounded once (ROADMAP Queue C, PR 16)
+    committed = cnt_ok.reshape(B, -1).double().sum(dim=1).float()
+    if reduced:
+        return {"throughput": tput, "median_ms": med, "p99_ms": p99,
+                "committed": committed}
     nbuck = int(math.ceil(n_ticks * cfg.tick_ms / bucket_ms))
     b = torch.where(ok, commit_t * (cfg.tick_ms / bucket_ms), 0.0
                     ).to(torch.int32).clamp(0, nbuck - 1).long()
-    cnt_ok = torch.where(ok, count, 0.0)
 
     def bucket_sum(*shape, index, src):
         """scatter_add_ of float32 ``src`` along the last axis, exact."""
+        # lint: allow(dtype-hygiene): exact bucket sums of float32
+        # terms, rounded once (ROADMAP Queue C, PR 16)
         return torch.zeros(shape, dtype=torch.float64, device=count.device
                            ).scatter_add_(len(shape) - 1, index,
                                           src.double()).float()
@@ -388,10 +431,34 @@ def _batch_metrics(cfg: SMRConfig, create_t, arr_mean, count, commit_t,
                            float("nan"))
     return {"throughput": tput, "median_ms": med, "p99_ms": p99,
             "timeline": timeline,
-            "committed": cnt_ok.reshape(B, -1).double().sum(dim=1).float(),
+            "committed": committed,
             "origin_median_ms": med_o, "origin_p99_ms": p99_o,
             "origin_timeline": tl_o / (bucket_ms / 1000.0),
             "origin_lat_ms_timeline": lat_tl_o}
+
+
+def _latency_sketch(cfg: SMRConfig, create_t, arr_mean, count, commit_t,
+                    warmup_frac=0.15) -> Dict:
+    """The committed-latency distribution as a 64-bin sketch per lane
+    ({"v", "w"} [B, SKETCH_BINS] float32, on the device), over the same
+    measurement window and weights as ``_batch_metrics``. Raises when a
+    lane's in-window weight reaches ``SKETCH_EXACT_WEIGHT``, past which
+    its running sums would not be exact (one read-back, after the run)."""
+    B = count.shape[0]
+    n_ticks = netsim.sim_ticks(cfg)
+    ok = torch.isfinite(commit_t) & (count > 0) & torch.isfinite(create_t)
+    lat_ms = (commit_t - arr_mean) * cfg.tick_ms
+    in_win = ok & (commit_t >= warmup_frac * n_ticks)
+    w = torch.where(in_win, count, 0.0).reshape(B, -1)
+    # lint: allow(dtype-hygiene): an exact total of float32 counts
+    # for the sketch's 2^24 check, read once after the run
+    top = float(w.double().sum(dim=1).max())
+    if top >= SKETCH_EXACT_WEIGHT:
+        raise ValueError(f"a lane's in-window weight {top} reaches 2^24: "
+                         "the sketch's float32 running sums would round")
+    # zero-weight rows may hold inf/nan latencies (uncommitted batches);
+    # the sketch masks them instead of multiplying through
+    return dsketch.build(lat_ms.reshape(B, -1), w)
 
 
 def _vc_commit_ticks(cvc_trace: torch.Tensor, r_max: int) -> torch.Tensor:
@@ -449,6 +516,8 @@ def make_arrivals(cfg: SMRConfig, mode: WorkloadMode,
         if epochs is None:
             epochs = wlmod.epoch_stream(rate_per_tick, seeds, wlt, n_ticks,
                                         n, device)
+        # lint: allow(dtype-hygiene): the closed lanes' epoch stream
+        # is float64 (a time-changed unit-rate Poisson process)
         epochs = torch.as_tensor(epochs, dtype=torch.float64,
                                  device=device).contiguous()
         if epochs.dim() != 3 or tuple(epochs.shape[:2]) != (batch, n):
@@ -468,7 +537,8 @@ def sim_point(protocol: str, cfg: SMRConfig, env: Dict,
               draws: Optional[torch.Tensor] = None,
               mode: WorkloadMode = TRIVIAL_MODE, device=None,
               wlt: Optional[Dict] = None,
-              epochs: Optional[torch.Tensor] = None) -> Dict:
+              epochs: Optional[torch.Tensor] = None,
+              reduced: bool = False) -> Dict:
     """Every lane of a batched grid, end to end: tick loop + on-device
     metric extraction. env: batched env (leaves [B, ...], see
     netsim.stack_envs); rate_per_tick, seeds: per lane; ``mode``: the
@@ -486,7 +556,13 @@ def sim_point(protocol: str, cfg: SMRConfig, env: Dict,
     Returns a dict of [B, ...] tensors: the metrics of every protocol,
     plus async_frac, views, cvc_all and commit_key for mandator-sporades;
     ``inflight_max`` in closed mode; the phase breakdown and ``obs`` (the
-    layers' trace rings) with tracing on; ``mon`` with monitoring on."""
+    layers' trace rings) with tracing on; ``mon`` with monitoring on.
+
+    ``reduced`` is the reduced sweep path's contract: the scalars are
+    computed by the same operations (bitwise equal to the unreduced
+    run's), the keys of ``REDUCED_DROPS`` are neither computed nor
+    returned, and ``sketch`` ({"v", "w"} [B, 64], ``_latency_sketch``)
+    takes their place."""
     check_supported(protocol, cfg, mode)
     dev = _device.resolve(device)
     if not isinstance(cfg.delay_horizon_ticks, int):
@@ -497,7 +573,8 @@ def sim_point(protocol: str, cfg: SMRConfig, env: Dict,
     env = {k: v.to(dev) for k, v in env.items()}
     arr = make_arrivals(cfg, mode, rate_per_tick, seeds, dev, wlt, draws,
                         epochs)
-    st, trace = _scan_body(protocol, cfg, n_ticks, env, arr, batch, dev)
+    st, trace = _scan_body(protocol, cfg, n_ticks, env, arr, batch, dev,
+                           reduced)
     wl = st["p" if protocol == "multipaxos" else "m"]["wl"]
     if arr.cut is not None and bool(arr.cut.any()):
         raise ValueError("draws replays the closed lanes' counts after the "
@@ -514,36 +591,43 @@ def sim_point(protocol: str, cfg: SMRConfig, env: Dict,
         cvc = trace["cvc"]
     commit_t = _vc_commit_ticks(cvc, wl["batch_count"].shape[2])
     out = _batch_metrics(cfg, wl["batch_create_t"], wl["batch_arr_mean"],
-                         wl["batch_count"], commit_t)
+                         wl["batch_count"], commit_t, reduced=reduced)
     if protocol == "mandator-sporades":
         out["async_frac"] = trace["is_async"].float().flatten(1).mean(dim=1)
         out["views"] = trace["v_cur"].flatten(1).amax(dim=1)
-        out["cvc_all"] = trace["cvc_all"]          # [B, ticks, n, n]
-        out["commit_key"] = trace["commit_key"]    # [B, ticks, n]
+        if not reduced:
+            out["cvc_all"] = trace["cvc_all"]          # [B, ticks, n, n]
+            out["commit_key"] = trace["commit_key"]    # [B, ticks, n]
     if mode.closed:
         out["inflight_max"] = trace["inflight"].amax(dim=1)      # [B, n]
     if cfg.trace_level != obs.TraceLevel.OFF:
         out.update(_phase_breakdown(protocol, cfg, wl, trace, commit_t,
-                                    n_ticks))
+                                    n_ticks, reduced=reduced))
         out["obs"] = {layer: obs.public_view(st[k]["tr"])
                       for k, layer in (("m", "mandator"), ("s", "sporades"),
                                        ("p", "paxos"))
                       if k in st and "tr" in st[k]}
     if hmon.on(cfg.monitor_level):
         out["mon"] = hmon.public_view(st["mon"], n_ticks)
+    if reduced:
+        out["sketch"] = _latency_sketch(
+            cfg, wl["batch_create_t"], wl["batch_arr_mean"],
+            wl["batch_count"], commit_t)
     return out
 
 
 def _phase_breakdown(protocol: str, cfg: SMRConfig, wl: Dict, trace: Dict,
                      commit_t: torch.Tensor, n_ticks: int,
-                     warmup_frac: float = 0.15) -> Dict:
+                     warmup_frac: float = 0.15,
+                     reduced: bool = False) -> Dict:
     """Latency-breakdown accounting (``obs.PHASES``): split each committed
     batch's end-to-end latency at three protocol boundaries — batch
     creation at the origin (queue | dissemination), stability (n-f
     dissemination votes; dissemination | consensus), and global commit
     (consensus | delivery, the origin's own observation). The four phase
     marks telescope back to the client-perceived latency of
-    ``_batch_metrics``: same arrival mean, same commit reconstruction."""
+    ``_batch_metrics``: same arrival mean, same commit reconstruction.
+    ``reduced`` leaves out the per-batch marks (``REDUCED_DROPS``)."""
     r_max = wl["batch_count"].shape[2]
     create_t, arr_t = wl["batch_create_t"], wl["batch_arr_mean"]
     cnt = wl["batch_count"]
@@ -575,7 +659,7 @@ def _phase_breakdown(protocol: str, cfg: SMRConfig, wl: Dict, trace: Dict,
                                                      0.5),   # [B, 4, n]
            "phase_origin_p99_ms": _weighted_quantile(phases_ms, w_orig,
                                                      0.99)}
-    if cfg.trace_level == obs.TraceLevel.FULL:
+    if cfg.trace_level == obs.TraceLevel.FULL and not reduced:
         out["batch_marks_t"] = marks      # absolute ticks, inf = never
         out["batch_arr_t"] = arr_t
         out["batch_n"] = cnt

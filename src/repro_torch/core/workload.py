@@ -106,6 +106,8 @@ def init_workload(cfg: SMRConfig, n_ticks: int, batch: int,
         # running prefix sum of batch_count by round (written at formation,
         # rounds are formed in order) so the commit feedback is a gather
         wl["batch_count_cum"] = z(batch, n, n_ticks)
+        # lint: allow(dtype-hygiene): the closed loop's cumulative
+        # intensity is compared with float64 epochs
         wl["cl_lam_cum"] = torch.zeros((batch, n), dtype=torch.float64,
                                        device=device)
         wl["cl_drawn"] = torch.zeros((batch, n), dtype=torch.int64,
@@ -151,6 +153,8 @@ def epoch_count(rate: float, wlt: Dict, b: int) -> int:
     tick), so draw that many plus EPOCH_SIGMAS standard deviations of the
     count and EPOCH_FLOOR."""
     mult = np.asarray(torch.as_tensor(wlt["rate_of"][b]).cpu(),
+                      # lint: allow(dtype-hygiene): host float64 bound of a
+                      # lane's epoch count
                       np.float64)[
         np.asarray(torch.as_tensor(wlt["win_of_tick"][b]).cpu())]
     bound = float(np.max(np.sum(float(rate) * mult, axis=0)))
@@ -169,6 +173,8 @@ def epoch_stream(rate_per_tick: Sequence[float], seeds: Sequence[int],
               if float(wlt["closed"][b]) > 0 else 0
               for b, lam in enumerate(rate_per_tick)]
     m = max(max(counts), 1)
+    # lint: allow(dtype-hygiene): the closed lanes' epoch stream
+    # is float64 (a time-changed unit-rate Poisson process)
     out = torch.full((len(counts), n, m), float("inf"), dtype=torch.float64,
                      device=device)
     for b, (c, seed) in enumerate(zip(counts, seeds)):
@@ -176,6 +182,8 @@ def epoch_stream(rate_per_tick: Sequence[float], seeds: Sequence[int],
             continue
         gen = torch.Generator(device=device)
         gen.manual_seed(int(seed))
+        # lint: allow(dtype-hygiene): the closed lanes' epoch stream
+        # is float64 (a time-changed unit-rate Poisson process)
         gaps = torch.empty((n, c), dtype=torch.float64, device=device)
         gaps.exponential_(generator=gen)
         out[b, :, :c] = torch.cumsum(gaps, dim=1)
@@ -214,6 +222,8 @@ def arrive(wl: Dict, arr: Arrivals, t: int, alive: torch.Tensor) -> Dict:
             # a tensor divisor: CUDA divides by a Python scalar as a
             # product with its reciprocal
             lam = torch.clamp(clients - inflight, min=0.0) / think
+            # lint: allow(dtype-hygiene): the cumulative intensity
+            # accumulates in float64, as the epochs it is compared with
             lam_cum = wl["cl_lam_cum"] + torch.where(closed, lam,
                                                      0.0).double()
             seen = torch.searchsorted(arr.epochs, lam_cum[..., None],
@@ -284,7 +294,9 @@ def form_batches(wl: Dict, t: int, can_form: torch.Tensor,
     # :106,122) is contracted by XLA on the CPU into one fused multiply-add
     # of buffer_tsum and frac, rounded once; the float32 product of two
     # float32 values is exact in float64, so this rounds as the FMA does
+    # lint: allow(dtype-hygiene): the fused multiply-add's one rounding
     tsum = wl["buffer_tsum"].double()
+    # lint: allow(dtype-hygiene): the fused multiply-add's one rounding
     wl["buffer_tsum"] = (tsum - tsum * frac.double()).float()
     wl["cpu_tokens"] = wl["cpu_tokens"] - count
     wl["last_batch_t"] = torch.where(formed, float(t), wl["last_batch_t"])

@@ -94,6 +94,8 @@ def round_to_f32(x: torch.Tensor, rounding: str) -> torch.Tensor:
         return f
     if rounding != "rz":
         raise ValueError(f"rounding must be 'rn' or 'rz', got {rounding!r}")
+    # lint: allow(dtype-hygiene): a float64 view of a float32 value,
+    # exact: the twin's round-toward-zero test
     over = f.double().abs() > x.abs()
     return torch.where(over, torch.nextafter(f, torch.zeros_like(f)), f)
 
@@ -114,6 +116,8 @@ def fused_step(t: torch.Tensor, prods: torch.Tensor, rounding: str = "rz",
     precision at the largest term's leading bit, the sum (then exact) cut
     toward zero; ``extra_bits=None`` sums exactly first. "rn": the exact
     sum rounded to nearest."""
+    # lint: allow(dtype-hygiene): the 3xTF32 twin sums exact
+    # products in float64 to round them as the tensor cores do
     terms = torch.cat([t.double()[..., None], prods], dim=-1)
     if rounding == "rz" and extra_bits is not None:
         _, e = torch.frexp(terms.abs().amax(dim=-1, keepdim=True))
@@ -133,7 +137,11 @@ def mma_tf32x3(eq: str, a: torch.Tensor, a_dim: int, b: torch.Tensor,
     alone (passes=1), each a ``fused_step``; then c += t in float32."""
     ins, out = eq.split("->")
     each = f"{ins}->{out}{ins.split(',')[0][a_dim]}"    # keep the products
+    # lint: allow(dtype-hygiene): TF32 halves widen exactly; their
+    # products are exact in float64
     ah, al = (t.double() for t in _split(a))
+    # lint: allow(dtype-hygiene): TF32 halves widen exactly; their
+    # products are exact in float64
     bh, bl = (t.double() for t in _split(b))
     terms = ([(al, bh), (ah, bl)] if passes == 3 else []) + [(ah, bh)]
     for c0 in range(0, a.shape[a_dim], 8):

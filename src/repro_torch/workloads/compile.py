@@ -79,8 +79,8 @@ def lower(cfg: SMRConfig, wl, pad_windows: Optional[int] = None) -> Tables:
     win_start = _win_starts(cfg, wl)
     w = len(win_start)
     tab: dict = {
-        # float64 paint buffer so primitive stacking is bit-stable; one
-        # float32 cast below
+        # lint: allow(dtype-hygiene): float64 paint buffer so primitive
+        # stacking is bit-stable; one float32 cast below
         "rate_of": np.ones((w, n), np.float64),
         "closed": False,
         "think_ticks": 1.0,

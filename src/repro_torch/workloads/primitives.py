@@ -76,6 +76,8 @@ class PoissonOpen:
 
     def paint(self, cfg: SMRConfig, n_ticks: int, win_start: np.ndarray,
               tab: Tables) -> None:
+        # lint: allow(dtype-hygiene): host-side float64 rate painting;
+        # one float32 cast at compile.lower()
         tab["rate_of"] *= np.float64(self.scale)
 
 
@@ -120,6 +122,8 @@ class OnOffBurst:
             mid = (win_start[w] + nxt) / 2.0
             phase = ((mid - t0) % period) / period
             s = self.on_scale if phase < self.duty else self.off_scale
+            # lint: allow(dtype-hygiene): host-side float64 rate painting;
+            # one float32 cast at compile.lower()
             tab["rate_of"][w, mask] *= np.float64(s)
 
 
@@ -148,6 +152,8 @@ class DiurnalRamp:
             mid = (win_start[w] + nxt) / 2.0
             s = self.low + (self.high - self.low) * 0.5 * (
                 1.0 - math.cos(2.0 * math.pi * mid / period))
+            # lint: allow(dtype-hygiene): host-side float64 rate painting;
+            # one float32 cast at compile.lower()
             tab["rate_of"][w, mask] *= np.float64(s)
 
 
@@ -180,6 +186,8 @@ class FlashCrowd:
         t0 = _tick(cfg, self.at_s, n_ticks)
         t1 = _tick(cfg, self.at_s + self.duration_s, n_ticks)
         w = _covered(win_start, t0, t1)
+        # lint: allow(dtype-hygiene): host-side float64 rate painting;
+        # one float32 cast at compile.lower()
         tab["rate_of"][np.ix_(w, mask)] *= np.float64(self.magnitude)
         if self.decay_s > 0:
             t2 = _tick(cfg, self.at_s + self.duration_s + self.decay_s,
@@ -189,6 +197,8 @@ class FlashCrowd:
                 nxt = win_start[wi + 1] if wi + 1 < len(win_start) else n_ticks
                 mid = (win_start[wi] + nxt) / 2.0
                 s = 1.0 + (self.magnitude - 1.0) * math.exp(-(mid - t1) / tau)
+                # lint: allow(dtype-hygiene): host-side float64 rate painting;
+                # one float32 cast at compile.lower()
                 tab["rate_of"][wi, mask] *= np.float64(s)
 
 
@@ -257,6 +267,8 @@ class ClosedLoop:
         if tab["closed"]:
             raise ValueError("a Workload may contain only one ClosedLoop")
         if self.placement is not None:
+            # lint: allow(dtype-hygiene): host-side float64 rate painting;
+            # one float32 cast at compile.lower()
             w = np.asarray(self.placement, np.float64)
             if w.shape != (n,) or (w < 0).any() or w.sum() <= 0:
                 raise ValueError(

@@ -8,11 +8,12 @@ Each SRC is the ``src`` directory of a checkout (this one's, or a parent's
 unpacked with ``git archive`` into a directory that .gitignore lists).
 Each runs in a process of its own, in the order given (parent, change,
 change, parent compares two versions fairly), which imports
-``repro_torch`` from SRC and runs chip_smoke phase 5's window: the
-16-lane Fig-6 grid stepped to tick 500, then ticks 500-700 three times
-untraced (wall per tick, the device drained at both ends) and once under
-torch.profiler (kernel launches and device busy time per tick). Prints
-one JSON line per run and the card's name and power limit. Needs a card.
+``repro_torch`` from SRC and runs a window of chip_smoke phase 5's
+grid: the 16-lane Fig-6 grid stepped to tick 500, then ticks 500-700
+three times untraced (wall per tick, the device drained at both ends)
+and once under torch.profiler (kernel launches and device busy time per
+tick). Prints one JSON line per run and the card's name and power limit.
+Needs a card.
 """
 from __future__ import annotations
 
