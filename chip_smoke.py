@@ -16,7 +16,8 @@ Phases, each printed as it ends; any failure exits non-zero:
               spills, and each decode split kernel's CTAs per SM and
               dynamic shared memory;
   3. kernel — random tick traffic (drops, in-slot collisions, 2*D ticks,
-              D=256, B=16) and adversarial traffic (D ticks from a ring
+              D=256, B=16; the tick an int32 in device memory, from which
+              the kernel takes its slot) and adversarial traffic (D ticks from a ring
               holding cells below -1 and additive -0.0, expanded payloads,
               most sends masked out) through the sporades, mandator,
               paxos (plain: the additive request forwards, K=14; Mandator
@@ -32,12 +33,17 @@ Phases, each printed as it ends; any failure exits non-zero:
               and the host time per call of the fused and the plain path;
   4. main   — the Fig-6 sweep at full size through the port's entry point:
               run_sweep("mandator-sporades", SMRConfig(), 4 rates x 4
-              seeds) = 16 lanes, n=5, 10 000 ticks, D=256, with the kernel
-              on the path (launch counts read around this run only);
-  5. profile — ticks 500-550 of that grid run twice from one state,
-              untraced (wall per tick) and under torch.profiler (kernel
-              launches per tick, device busy time per tick, the top
-              kernels);
+              seeds) = 16 lanes, n=5, 10 000 ticks, D=256, as one captured
+              tick graph (core/compile_cache.py): the warm-up tick eager,
+              one capture, 9 999 replays; the kernel on the path (its
+              wrapper's launches, for the warm-up and the capture, and the
+              replays' launches of its graph nodes, read around this run
+              only: 2 a tick in all);
+  5. profile — ticks 500-700 of that grid as graph replays, untraced
+              (wall per tick) and under torch.profiler (kernel launches
+              and device busy time per tick, the top kernels), beside the
+              graph's own kernel nodes (its DOT dump) and the same window
+              run eagerly from the same state;
   6. whole path — 1.5 s runs of baseline and leader-crash-recover with
               the kernel and with the plain version, bitwise equal (2 s
               runs until the model phases were added; 1.5 s still enters
@@ -45,17 +51,24 @@ Phases, each printed as it ends; any failure exits non-zero:
               same points for 1 s on the card and on the CPU from one
               arrival table, bitwise equal: the integer traces and every
               float metric (SAME_LEAVES);
+ 6c. graph  — the captured tick against the eager loop on the card
+              (harness._eager_on_card), bit for bit on every carried leaf,
+              trace leaf and result: phase 6's 1.5 s baseline and
+              leader-crash-recover runs of the four scan protocols, a
+              closed-loop grid and telemetry full, with both walls; then
+              the audit (analysis/graph_lint.py) on the card: G1-G4 over
+              the reference's audit grid, its verdict printed;
  6b. protocols — the rest of the paper's comparison through the entry
               points (run_sweep), tracing and monitoring off: (a) the full
               Fig-6 grids of mandator-paxos (50k/150k/300k/450k) and
               multipaxos (10k/30k/50k/100k tx/s) x seeds 0-3, 10 000
               ticks: wall, lane-ticks/s, ms/tick, the ring's D, and the
               channel_ring_commit launches counted around each run alone
-              (2 and 1 per tick); every point commits and stays within
-              1.05 x its rate; ticks 500-550 of each grid profiled as in
-              phase 5 (launches/tick, device busy share); (b) mandator
-              alone at Fig 6's mandator-sporades rates for 2 s (1 launch
-              per tick); (c) for
+              (2 and 1 per tick, as in phase 4); every point commits and
+              stays within 1.05 x its rate; ticks 500-700 of each grid
+              profiled as in phase 5; (b) mandator alone at Fig 6's
+              mandator-sporades rates for 2 s (1 launch per tick,
+              profiled); (c) for
               mandator-paxos, multipaxos and mandator on baseline,
               leader-crash-recover and paper-ddos, from one arrival table
               for 1 s: kernel vs plain on the card and card vs CPU, every
@@ -146,14 +159,13 @@ Phases, each printed as it ends; any failure exits non-zero:
               forward, flash's share of device time);
  15. workloads — windowed and closed-loop workloads, the flight recorder
               and the health monitor through the entry points: (a)
-              benchmarks/figures.py's workload matrix, cut to its --quick
-              2 s for the script's time limit: the seven library
+              benchmarks/figures.py's workload matrix at its full 4 s:
+              the seven library
               workloads x {baseline, paper-ddos}, one 14-lane grid per
               scan protocol (mandator-sporades, mandator-paxos and
               mandator at 200k tx/s, multipaxos at 30k), with the
               channel_ring_commit launches counted around each grid alone
-              and a profile of ticks 200-250 (ms/tick, launches/tick,
-              busy share);
+              and a profile of ticks 200-400 as in phase 5;
               every lane commits and no closed lane's in-flight high water
               passes its cap; EPaxos at 8k and Rabia at 800 on the
               baseline; (b) onoff-burst, region-skew, closed-loop and
@@ -169,15 +181,15 @@ Phases, each printed as it ends; any failure exits non-zero:
               each batch's phase marks ordered and the rows' median and
               p99 recomputed from the marks' commit - arrival,
               a Chrome trace that validates, ms/tick on and off, and
-              launches/tick and busy share of ticks 100-125 on and off;
+              launches/tick and busy share of ticks 100-300 on and off;
  16. reduced sweeps — the reduced path, run_sweep(..., mesh=1): (a) the
               mandator-sporades Fig-6 grid (16 lanes x 10 000 ticks) with
               every scalar (throughput, median_ms, p99_ms, committed,
               async_frac, views) bit for bit equal to phase 4's rows, no
               key of harness.REDUCED_DROPS and a [64] sketch; wall,
               ms/tick and bytes read back per row, reduced vs
-              unreduced; 2 channel_ring_commit launches a tick and one
-              sketch_buckets launch, whose captured inputs then hold the
+              unreduced; 2 channel_ring_commit launches a tick (as in
+              phase 4) and one sketch_buckets launch, whose captured inputs then hold the
               kernel against its plain version on the CPU (bit for bit)
               and on the card (index_add_, within SKETCH_CARD_REL), with
               its time, bound, the plain version's and index_add_'s
@@ -188,7 +200,9 @@ Phases, each printed as it ends; any failure exits non-zero:
               within 10% of the exact one (the reference test's band;
               the p99 gap printed, unbounded); (d) grid_mesh past the
               card count raises;
- 17. the card's line, the kernels line, then the result line.
+ 17. the tick programs of the whole script (captures, their seconds,
+              replays, the kernels they launched), the card's line, the
+              kernels line, then the result line.
 
 It imports nothing of JAX and nothing of the JAX package. Float32 matrix
 products and convolutions run in full float32 (TF32 off).
@@ -212,6 +226,7 @@ L2_BYTES = 50e6                    # H100 L2 cache (data sheet)
 # and TF32 on the tensor cores
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "tf32": 495e12}
 B, D = 16, 256                     # the Fig-6 grid's lanes and ring slots
+COMMIT_KERNEL = "commit_kernel"    # in csrc/channel_ring.cu's kernel's name
 FIG6_RATES = (50_000, 150_000, 300_000, 450_000)
 FIG6_SEEDS = (0, 1, 2, 3)
 
@@ -322,10 +337,11 @@ def bound_bytes(buf, t, sends, drop, layout) -> int:
     stored elements read once (an expanded view's storage once, a tensor
     that several sends share once), drop and fill read once, the cleared
     slot written once, and each ring cell a send targets read and written
-    once (a masked-out send still merges its neutral value)."""
+    once (a masked-out send still merges its neutral value); and the tick
+    itself, one int32 read."""
     import torch
     Bn, Dn, n, _, K = buf.shape
-    seen, inputs = set(), K * 4
+    seen, inputs = set(), K * 4 + 4
     tensors = [x for s in sends for x in (s.payload, s.delay_ticks, s.mask)]
     for x in tensors + ([drop] if drop is not None else []):
         key = (x.data_ptr(), tuple(x.shape), x.stride())
@@ -381,16 +397,20 @@ def phase_kernel(results: dict) -> None:
                 ring_k = adversarial_ring(spec, n, gen, ch)
             ring_r = {"buf": ring_k["buf"].clone()}
             ticks = 2 * D if traffic == "random" else D
+            # the tick as the loop carries it: one int32 in device memory,
+            # from which the kernel and the plain path take the slot
+            tt = torch.zeros((), dtype=torch.int32, device="cuda")
             for t in range(ticks):
                 # adversarial: expanded payloads, most sends masked out
                 sends, drop = random_sends(
                     spec, names, n, gen, ch, expand=traffic != "random"
                     and t % 2 == 0, p_mask=0.5 if traffic == "random"
                     else 0.2)
-                ring_k = ch.ring_commit(spec, ring_k, t, sends, drop=drop,
+                ring_k = ch.ring_commit(spec, ring_k, tt, sends, drop=drop,
                                         backend="cuda")
-                ring_r = ch.ring_commit(spec, ring_r, t, sends, drop=drop,
+                ring_r = ch.ring_commit(spec, ring_r, tt, sends, drop=drop,
                                         backend="ref")
+                tt.add_(1)
                 if not torch.equal(ring_k["buf"].view(torch.int32),
                                    ring_r["buf"].view(torch.int32)):
                     diff = (ring_k["buf"] - ring_r["buf"]).abs().max().item()
@@ -398,8 +418,9 @@ def phase_kernel(results: dict) -> None:
                                          f"!= plain at tick {t} (max abs "
                                          f"diff {diff})")
             log("kernel", f"{name} ({traffic}): n={n} K={spec.k} "
-                          f"E={len(names)} B={B} D={D}, {ticks} ticks, "
-                          "kernel == plain bitwise after every tick")
+                          f"E={len(names)} B={B} D={D}, {ticks} ticks with "
+                          "t in device memory, kernel == plain bitwise "
+                          "(int32 bits) after every tick")
 
     n = 5
     per_layout = {}
@@ -407,7 +428,7 @@ def phase_kernel(results: dict) -> None:
         spec, names = layouts()[name]
         ring = ch.make_ring(spec, D, n, B, torch.device("cuda"))
         sends, drop = random_sends(spec, names, n, gen, ch, expand=True)
-        t = 3
+        t = torch.full((), 3, dtype=torch.int32, device="cuda")
         layout = ch.send_layout(spec, tuple(names))
         fill = ch.fill_tensor(spec, torch.device("cuda"))
         buf_k, buf_r = ring["buf"].clone(), ring["buf"].clone()
@@ -461,7 +482,8 @@ def phase_main(results: dict) -> None:
     rows = run_sweep("mandator-sporades", cfg, spec)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = _counts()["channel_ring_commit"]
+    counts = _counts()
+    launches = counts["channel_ring_commit"]
     ticks = int(cfg.sim_seconds * 1000 / cfg.tick_ms)
     horizon = experiment.timing_stats()["mandator-sporades"]["horizon"]
     for r in rows:
@@ -474,11 +496,8 @@ def phase_main(results: dict) -> None:
     log("main", f"{len(rows)} lanes x {ticks} ticks, n={cfg.n_replicas}, "
                 f"D={horizon}: wall {wall!r} s, "
                 f"{lane_ticks / wall!r} lane-ticks/s, "
-                f"{wall / ticks * 1e3!r} ms/tick, "
-                f"channel_ring_commit launches {launches}")
-    if launches != 2 * ticks:
-        raise AssertionError(f"expected {2 * ticks} kernel launches (one per "
-                             f"protocol per tick), got {launches}")
+                f"{wall / ticks * 1e3!r} ms/tick; {_graph_line(counts)}")
+    commits = _check_launches("mandator-sporades", counts, ticks, "main")
     if horizon != D:
         raise AssertionError(f"expected a {D}-slot ring, got {horizon}")
     for r in rows:
@@ -492,6 +511,9 @@ def phase_main(results: dict) -> None:
             raise AssertionError(f"50k tx/s point off by more than 10%: "
                                  f"{r['throughput']}")
     results["launches"] = launches
+    results["graph_launches"] = counts["channel_ring_commit_graph"]
+    results["commits"] = commits
+    results["main_programs"] = counts["_programs"]
     results["wall_s"] = wall
     results["fig6_rows"] = {"mandator-sporades": rows}
 
@@ -504,82 +526,130 @@ def _clone(tree):
     return tree.clone()
 
 
+def _profile_window(fn, n_window: int):
+    """(kernel launches per tick, device ms per tick) of ``fn()`` under
+    torch.profiler; (None, 0.0) where it saw no device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    dev_us = sum(e.self_device_time_total for e in kernels)
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    return (sum(e.count for e in kernels) / n_window,
+            dev_us / 1e3 / n_window, top)
+
+
 def tick_profile(tag: str, protocol: str, rates, start: int,
                  n_window: int, cfg=None, spec=None):
     """Where a tick's time goes: the grid of ``protocol`` (by default the
     16-lane Fig-6 grid at ``rates`` x FIG6_SEEDS under SMRConfig(); else
-    ``spec`` under ``cfg``, any workload and telemetry level) is stepped
-    to tick ``start``, then ticks start .. start + n_window run twice from
-    the same state, once untraced (wall time, synchronized on both sides)
-    and once under torch.profiler. The device's busy share is the traced
-    kernel time over the untraced wall time of the same window. Returns
-    the per-tick numbers, or None where the profiler saw no device
-    time."""
+    ``spec`` under ``cfg``, any workload and telemetry level) runs to tick
+    ``start`` through its tick graph (the warm-up tick, then replays), and
+    ticks start .. start + n_window then run as replays, once untraced
+    (wall, the device drained at both ends) and once under torch.profiler
+    (the graph's kernels as the profiler sees them), beside the graph's
+    own kernel nodes (its DOT dump); then the window's first 50 ticks
+    from the same state run eagerly (``harness.step``), untraced, and the
+    next 50 profiled. The
+    busy share is the traced device time over the untraced wall of the
+    same window. Returns the per-tick numbers of both."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs.smr import SMRConfig
-    from repro_torch.core import experiment, harness, netsim
+    from repro_torch.core import compile_cache, experiment, harness, netsim
     from repro_torch.core.experiment import SweepSpec
 
     dev = torch.device("cuda")
     spec = spec or SweepSpec(rates=rates, seeds=FIG6_SEEDS)
     _, cfg, mode, env, rate_b, seeds = experiment._lower(
-        cfg or SMRConfig(), spec, dev)
+        cfg or SMRConfig(), spec, dev, canonical=True)
     ticks = netsim.sim_ticks(cfg)
-    arr = harness.make_arrivals(cfg, mode, rate_b.tolist(), seeds, dev,
-                                experiment._lower_workloads(cfg, spec))
-    carry, grace = harness.init_run(protocol, cfg, ticks, env, arr,
-                                    len(seeds), dev)
-    for t in range(start):                      # past the warm-up
-        carry = harness.step(carry, t, arr, env, cfg, protocol, grace)
-    window = range(start, start + n_window)
-    first = _clone(carry)
+    arr = harness.make_arrivals(
+        cfg, mode, rate_b.tolist(), seeds, dev,
+        experiment._lower_workloads(cfg, spec, canonical=True))
+    run = harness._setup(protocol, cfg, ticks, env, arr, len(seeds), dev)
+    harness._warm(run, protocol, cfg)
+    key = harness._program_key(protocol, cfg, run["arr"], False,
+                               run["carry"], run["inputs"])
+    carry, prog = compile_cache.run(
+        key, protocol, harness._graph_tick(run, protocol, cfg),
+        run["carry"], run["inputs"], run["t"], start - 1)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for t in window:
-        carry = harness.step(carry, t, arr, env, cfg, protocol, grace)
+    prog.replay(n_window)
     torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3 / len(window)
-    carry = first
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for t in window:
-            carry = harness.step(carry, t, arr, env, cfg, protocol, grace)
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
-    dev_us = sum(e.self_device_time_total for e in kernels)
-    launches = sum(e.count for e in kernels)
-    log(tag, f"{protocol} ticks {start}-{start + n_window} untraced: "
-             f"{wall_ms!r} ms/tick wall")
-    if dev_us <= 0:
-        log(tag, "torch.profiler recorded no device time: device busy "
-                 "share not measured")
-        return None
-    per_tick_ms = dev_us / 1e3 / len(window)
-    log(tag, f"{len(window)} ticks traced: {launches / len(window)!r} "
-             f"kernel launches/tick, device busy {per_tick_ms!r} ms/tick "
-             f"of {wall_ms!r} ms/tick untraced wall, same window (busy "
-             f"share {per_tick_ms / wall_ms!r})")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
-        log(tag, f"  {e.self_device_time_total / len(window)!r} "
-                 f"us/tick x{e.count / len(window):g}/tick  {e.key[:90]}")
+    wall_ms = (time.perf_counter() - t0) * 1e3 / n_window
+    g_launches, g_dev, g_top = _profile_window(
+        lambda: prog.replay(n_window), n_window)
+    nodes = prog.nodes
+    kernel_nodes = sum(nodes["kernels"].values())
+    commit_nodes = sum(k for name, k in nodes["kernels"].items()
+                       if COMMIT_KERNEL in name)
+
+    def eager(state, t, n):
+        for _ in range(n):
+            state = harness.step(state, t, run["arr"], env, cfg, protocol,
+                                 run["grace"])
+            t.add_(1)
+        return state
+    t = run["t"].clone()                              # tick `start`
+    state = _clone(carry)
+    e_n = min(n_window, 50)                 # eager ticks cost 10-20 ms
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = eager(state, t, e_n)
+    torch.cuda.synchronize()
+    e_wall = (time.perf_counter() - t0) * 1e3 / e_n
+    e_launches, e_dev, _ = _profile_window(lambda: eager(state, t, e_n),
+                                           e_n)
+    log(tag, f"{protocol} ticks {start}-{start + n_window} as graph "
+             f"replays: {wall_ms!r} ms/tick wall; the graph: "
+             f"{nodes['nodes']} nodes, {kernel_nodes} kernel nodes "
+             f"({commit_nodes} channel_ring_commit), "
+             f"{nodes['types']}; captured in {prog.capture_s!r} s")
+    if g_dev > 0:
+        log(tag, f"  replays traced: {g_launches!r} kernel launches/tick, "
+                 f"device busy {g_dev!r} ms/tick of {wall_ms!r} ms/tick "
+                 f"wall (busy share {g_dev / wall_ms!r})")
+        for e in g_top:
+            log(tag, f"    {e.self_device_time_total / n_window!r} "
+                     f"us/tick x{e.count / n_window:g}/tick  {e.key[:90]}")
+    else:
+        log(tag, "  torch.profiler recorded no device time in the "
+                 "replays: the graph's busy share not measured")
+    log(tag, f"  eager, the window's first {e_n} ticks from the same "
+             f"state: {e_wall!r} ms/tick wall; the next {e_n} profiled: "
+             f"{e_launches!r} launches/tick, device busy {e_dev!r} "
+             f"ms/tick (busy share "
+             f"{e_dev / e_wall if e_dev > 0 else float('nan')!r}); graph "
+             f"{e_wall / wall_ms!r}x faster")
     return {"wall_ms_per_tick": wall_ms,
-            "launches_per_tick": launches / len(window),
-            "device_ms_per_tick": per_tick_ms,
-            "busy_share": per_tick_ms / wall_ms}
+            "kernel_nodes_per_tick": kernel_nodes,
+            "graph_nodes_per_tick": nodes["nodes"],
+            "commit_nodes_per_tick": commit_nodes,
+            "launches_per_tick": g_launches if g_dev > 0 else None,
+            "device_ms_per_tick": g_dev if g_dev > 0 else None,
+            "busy_share": g_dev / wall_ms if g_dev > 0 else None,
+            "capture_s": prog.capture_s,
+            "eager_wall_ms_per_tick": e_wall,
+            "eager_launches_per_tick": e_launches,
+            "eager_device_ms_per_tick": e_dev,
+            "eager_busy_share": e_dev / e_wall if e_dev > 0 else None}
 
 
 def phase_profile(results: dict) -> None:
-    """Phase 5: ticks 500-550 of the mandator-sporades Fig-6 grid (cut
-    from 500-700 to keep the script inside its time limit)."""
-    prof = tick_profile("profile", "mandator-sporades", FIG6_RATES, 500, 50)
+    """Phase 5: ticks 500-700 of the mandator-sporades Fig-6 grid, as
+    graph replays and eagerly."""
+    prof = tick_profile("profile", "mandator-sporades", FIG6_RATES, 500,
+                        200)
     log("profile", f"the whole sweep: {results['wall_s'] / 10_000 * 1e3!r} "
                    "ms/tick")
-    if prof is not None:
-        results["profile"] = prof
+    results["profile"] = prof
 
 
 def phase_whole_path() -> None:
@@ -659,6 +729,134 @@ def _assert_same(a, b, names, what, leaves=SAME_LEAVES,
 
 
 # ---------------------------------------------------------------------------
+# phase 6c: the captured tick against the eager loop; the audit (G1-G4)
+# ---------------------------------------------------------------------------
+
+SCAN_PROTOCOLS = ("mandator-sporades", "mandator-paxos", "multipaxos",
+                  "mandator")
+
+
+def _same_tree(a, b, what: str, path: str = "") -> int:
+    """Every leaf of two nested dicts of tensors (or arrays, scalars)
+    equal bit for bit, floats as their bits, so that NaN equals NaN and
+    -0.0 differs from 0.0; a flight recorder's ring (``tr.buf``) without
+    its spill slot, the last, where the events a tick does not keep are
+    scattered several to one place (``obs/trace.py``). Returns the leaves
+    compared."""
+    import numpy as np
+    import torch
+    if isinstance(a, dict):
+        if set(a) != set(b):
+            raise AssertionError(f"{what}: keys of {path or 'the root'} "
+                                 f"differ: {sorted(set(a) ^ set(b))}")
+        return sum(_same_tree(a[k], b[k], what, f"{path}{k}.") for k in a)
+    if a is None or b is None:
+        if not (a is None and b is None):
+            raise AssertionError(f"{what}: {path} is None on one side")
+        return 1
+    x = a.detach().cpu().numpy() if isinstance(a, torch.Tensor) \
+        else np.asarray(a)
+    y = b.detach().cpu().numpy() if isinstance(b, torch.Tensor) \
+        else np.asarray(b)
+    if path.endswith("tr.buf."):
+        x, y = x[:, :, :-1], y[:, :, :-1]
+    if x.dtype != y.dtype or x.shape != y.shape:
+        raise AssertionError(f"{what}: {path} {x.dtype}{x.shape} vs "
+                             f"{y.dtype}{y.shape}")
+    if x.dtype.kind == "f":
+        x, y = (v.view(np.uint32 if v.itemsize == 4 else np.uint64)
+                for v in (np.ascontiguousarray(x), np.ascontiguousarray(y)))
+    if not np.array_equal(x, y):
+        raise AssertionError(f"{what}: {path} differs")
+    return 1
+
+
+def phase_graph(results: dict) -> None:
+    """Phase 6c: graph against eager on the card, bit for bit: every
+    carried leaf, every trace leaf and every result (``sim_point``'s dict)
+    of phase 6's 1.5 s baseline and leader-crash-recover runs for the four
+    scan protocols, a closed-loop grid (closed-loop and onoff-burst,
+    mandator-sporades) and telemetry full (mandator-paxos); the walls of
+    both. Then (the audit) ``graph_lint.audit`` on the card, G1-G4 over
+    the reference's audit grid."""
+    import dataclasses
+
+    import torch
+    from repro_torch.analysis import graph_lint
+    from repro_torch.configs.smr import SMRConfig
+    from repro_torch.core import compile_cache, experiment, harness, netsim
+    from repro_torch.core.experiment import SweepSpec
+    from repro_torch.scenarios import library
+    from repro_torch.workloads import library as wlib
+
+    dev = torch.device("cuda")
+    sim_s = 1.5
+    names = ("baseline", "leader-crash-recover")
+    cfg = SMRConfig(sim_seconds=sim_s)
+    scen = tuple(library.get(x, sim_s) for x in names)
+    fig6 = SweepSpec(rates=(100_000,), scenarios=scen)
+    cases = [(p, "baseline+leader-crash-recover", cfg, fig6)
+             for p in SCAN_PROTOCOLS]
+    cases.append(("mandator-sporades", "closed-loop+onoff-burst", cfg,
+                  SweepSpec(rates=(100_000,), scenarios=scen,
+                            workloads=(wlib.get("closed-loop", sim_s),
+                                       wlib.get("onoff-burst", sim_s)))))
+    cases.append(("mandator-paxos", "telemetry full",
+                  dataclasses.replace(cfg, trace_level="full",
+                                      monitor_level="full"), fig6))
+    out = results.setdefault("graph", {})
+    for proto, tag, c, spec in cases:
+        _, rcfg, mode, env, rate_b, seeds = experiment._lower(
+            c, spec, dev, canonical=True)
+        arr = harness.make_arrivals(
+            rcfg, mode, rate_b.tolist(), seeds, dev,
+            experiment._lower_workloads(rcfg, spec, canonical=True))
+        ticks = netsim.sim_ticks(rcfg)
+        runs = {}
+        for path in ("graph", "eager"):
+            _reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if path == "eager":
+                with harness._eager_on_card():
+                    st, tr = harness._scan_body(proto, rcfg, ticks, env,
+                                                arr, len(seeds), dev)
+            else:
+                st, tr = harness._scan_body(proto, rcfg, ticks, env, arr,
+                                            len(seeds), dev)
+            res = harness._results(proto, rcfg, st, tr, arr)
+            torch.cuda.synchronize()
+            runs[path] = (st, tr, res, time.perf_counter() - t0,
+                          compile_cache.stats())
+        g, e = runs["graph"], runs["eager"]
+        n = sum(_same_tree(g[i], e[i], f"{proto} {tag} graph vs eager")
+                for i in range(3))
+        if e[4]["captures"] or g[4]["replays"] != ticks - 1:
+            raise AssertionError(f"{proto} {tag}: graph {g[4]}, eager "
+                                 f"{e[4]}")
+        log("graph", f"{proto} {tag} ({len(seeds)} lanes x {ticks} "
+                     f"ticks): graph == eager bit for bit on {n} leaves "
+                     f"(carry, trace, results); wall graph {g[3]!r} s "
+                     f"({g[4]['captures']} capture, "
+                     f"{g[4]['capture_s']!r} s) vs eager {e[3]!r} s "
+                     f"({e[3] / g[3]!r}x)")
+        out[f"{proto} {tag}"] = {"leaves": n, "graph_s": g[3],
+                                 "eager_s": e[3],
+                                 "capture_s": g[4]["capture_s"]}
+
+    t0 = time.perf_counter()
+    v = graph_lint.audit(device="cuda", sim_seconds=2.0)
+    for line in graph_lint.format_verdict(v).splitlines():
+        log("audit", line)
+    if not v["ok"]:
+        raise AssertionError(f"graph audit: {v['violations']}")
+    log("audit", f"G1-G4 clean on the card in {time.perf_counter() - t0!r}"
+                 " s")
+    results["audit"] = {k: v[k] for k in ("ok", "violations", "protocols",
+                                           "wall_s")}
+
+
+# ---------------------------------------------------------------------------
 # phase 6b: the other protocols of the paper's comparison (Figs 6-9)
 # ---------------------------------------------------------------------------
 
@@ -677,7 +875,7 @@ FIG7_8_S = 2.0          # Figs 7 and 8 (figures.py: 4 s)
 
 def _counted(protocol, cfg, spec, **kw):
     """run_sweep with the launch counts set to 0 just before and read just
-    after: (rows, wall s, channel_ring_commit launches)."""
+    after: (rows, wall s, counts: see ``_counts``)."""
     import torch
     from repro_torch.core.experiment import run_sweep
     torch.cuda.synchronize()
@@ -685,7 +883,7 @@ def _counted(protocol, cfg, spec, **kw):
     t0 = time.perf_counter()
     rows = run_sweep(protocol, cfg, spec, **kw)
     torch.cuda.synchronize()
-    return rows, time.perf_counter() - t0, _counts()["channel_ring_commit"]
+    return rows, time.perf_counter() - t0, _counts()
 
 
 def _check_points(protocol, rows, what) -> None:
@@ -699,12 +897,34 @@ def _check_points(protocol, rows, what) -> None:
                                  f"{r['throughput']}")
 
 
-def _check_launches(protocol, launches, ticks, what) -> None:
-    want = RINGS[protocol] * ticks
-    if launches != want:
-        raise AssertionError(f"{what}: {protocol} expected {want} "
-                             f"channel_ring_commit launches "
-                             f"({RINGS[protocol]} per tick), got {launches}")
+def _check_launches(protocol, counts, ticks, what) -> int:
+    """One run of ``ticks`` ticks went through its tick graph: an eager
+    warm-up tick, at most one capture, ``ticks - 1`` replays; the commit
+    wrapper launched for the warm-up and the capture alone, and the
+    replays launched the commit kernel once a ring a tick. Returns the
+    commits run (wrapper's eager ones and the replays')."""
+    rings, prog = RINGS[protocol], counts["_programs"]
+    wrapper = counts["channel_ring_commit"]
+    graph = counts["channel_ring_commit_graph"]
+    ok = (prog["graph_runs"] == 1 and prog["eager_ticks"] == 1
+          and prog["replays"] == ticks - 1 and prog["captures"] <= 1
+          and wrapper == rings * (1 + prog["captures"])
+          and graph == rings * (ticks - 1))
+    if not ok:
+        raise AssertionError(
+            f"{what}: {protocol} expected one graph run of {ticks} ticks "
+            f"({rings} commit a tick: {rings} or {2 * rings} through the "
+            f"wrapper, {rings * (ticks - 1)} by the replays), got wrapper "
+            f"{wrapper}, replays' {graph}, programs {prog}")
+    return wrapper - rings * prog["captures"] + graph
+
+
+def _graph_line(counts) -> str:
+    p = counts["_programs"]
+    return (f"channel_ring_commit launches: {counts['channel_ring_commit']} "
+            f"through the wrapper (warm-up tick and capture), "
+            f"{counts['channel_ring_commit_graph']} by {p['replays']} "
+            f"replays; {p['captures']} capture(s) in {p['capture_s']!r} s")
 
 
 def phase_protocols(results: dict) -> None:
@@ -742,10 +962,9 @@ def phase_protocols(results: dict) -> None:
         log("protocols", f"{proto} Fig-6 grid: {len(rows)} lanes x {ticks} "
                          f"ticks, n={cfg.n_replicas}, D={horizon}: wall "
                          f"{wall!r} s, {len(rows) * ticks / wall!r} "
-                         f"lane-ticks/s, {wall / ticks * 1e3!r} ms/tick, "
-                         f"channel_ring_commit launches {launches} "
-                         f"({launches / ticks!r} per tick)")
-        _check_launches(proto, launches, ticks, "Fig-6 grid")
+                         f"lane-ticks/s, {wall / ticks * 1e3!r} ms/tick; "
+                         f"{_graph_line(launches)}")
+        commits = _check_launches(proto, launches, ticks, "Fig-6 grid")
         _check_points(proto, rows, "Fig-6 grid")
         if horizon != D:
             raise AssertionError(f"{proto}: expected a {D}-slot ring, got "
@@ -753,11 +972,15 @@ def phase_protocols(results: dict) -> None:
         fig6[proto] = rows
         out[proto] = {"wall_s": wall, "lane_ticks_per_s":
                       len(rows) * ticks / wall, "ms_per_tick":
-                      wall / ticks * 1e3, "launches": launches,
-                      "launches_per_tick": launches / ticks,
+                      wall / ticks * 1e3,
+                      "launches": launches["channel_ring_commit"],
+                      "graph_launches":
+                          launches["channel_ring_commit_graph"],
+                      "launches_per_tick": commits / ticks,
+                      "capture_s": launches["_programs"]["capture_s"],
                       "horizon": horizon,
                       "profile": tick_profile("protocols", proto, rates,
-                                              500, 50)}
+                                              500, 200)}
 
     # (b) Mandator alone at Fig 6's mandator-sporades rates, 2 s
     cfg = SMRConfig(sim_seconds=2.0)
@@ -765,16 +988,22 @@ def phase_protocols(results: dict) -> None:
     rows, wall, launches = _counted(
         "mandator", cfg, SweepSpec(rates=FIG6_RATES, seeds=FIG6_SEEDS))
     log("protocols", f"mandator alone, {len(rows)} lanes x {ticks} ticks: "
-                     f"wall {wall!r} s, {wall / ticks * 1e3!r} ms/tick, "
-                     f"launches {launches}; throughput by rate (seed 0): "
-                     + ", ".join(f"{r['rate']:.0f}: {r['throughput']!r}"
-                                 for r in rows if r["seed"] == 0))
-    _check_launches("mandator", launches, ticks, "mandator alone")
+                     f"wall {wall!r} s, {wall / ticks * 1e3!r} ms/tick; "
+                     f"{_graph_line(launches)}; throughput by rate (seed "
+                     "0): " + ", ".join(f"{r['rate']:.0f}: "
+                                        f"{r['throughput']!r}"
+                                        for r in rows if r["seed"] == 0))
+    commits = _check_launches("mandator", launches, ticks, "mandator alone")
     _check_points("mandator", rows, "mandator alone")
     fig6["mandator"] = rows
     out["mandator"] = {"wall_s": wall, "ms_per_tick": wall / ticks * 1e3,
-                       "launches": launches,
-                       "launches_per_tick": launches / ticks}
+                       "launches": launches["channel_ring_commit"],
+                       "graph_launches":
+                           launches["channel_ring_commit_graph"],
+                       "launches_per_tick": commits / ticks,
+                       "profile": tick_profile(
+                           "protocols", "mandator", FIG6_RATES, 500, 200,
+                           cfg=cfg)}
 
     # (c) bit for bit, on three scenarios and one arrival table for 1 s:
     # the kernel against the plain path on the card, and the card against
@@ -865,7 +1094,7 @@ def phase_protocols(results: dict) -> None:
         r = rows[0]
         log("protocols", f"Fig 9 n={n} @{60_000 * n}: throughput "
                          f"{r['throughput']!r}, median {r['median_ms']!r} "
-                         f"ms, wall {wall!r} s, launches {launches}")
+                         f"ms, wall {wall!r} s; {_graph_line(launches)}")
         _check_launches("mandator-sporades", launches, ticks, f"Fig 9 n={n}")
         _check_points("mandator-sporades", rows, f"Fig 9 n={n}")
         fig9[n] = {"tput": r["throughput"], "med_ms": r["median_ms"]}
@@ -877,14 +1106,13 @@ def phase_protocols(results: dict) -> None:
 # health monitor
 # ---------------------------------------------------------------------------
 
-# benchmarks/figures.py workload_matrix: its rates, its length cut from 4 s
-# to the suite's --quick 2 s for the script's time limit; the
+# benchmarks/figures.py workload_matrix: its rates and its full 4 s; the
 # seven library workloads x {baseline, paper-ddos}, the analytic models on
 # the baseline only
 WL_RATES = {"mandator-sporades": 200_000, "mandator-paxos": 200_000,
             "mandator": 200_000, "multipaxos": 30_000}
 WL_ANALYTIC = {"epaxos": 8_000, "rabia": 800}
-WL_S = 2.0
+WL_S = 4.0
 # benchmarks/figures.py robustness: its rates over the ten library
 # scenarios, cut from 4 s to the suite's --quick 2 s for the script's time
 ROBUST_RATES = {"mandator-sporades": (50_000, 200_000),
@@ -1000,7 +1228,7 @@ def phase_workloads(results: dict) -> None:
         spec = SweepSpec(rates=(rate,), scenarios=scen,
                          workloads=tuple(wlib.values()))
         rows, wall, launches = _counted(proto, cfg, spec)
-        _check_launches(proto, launches, ticks, "workload matrix")
+        commits = _check_launches(proto, launches, ticks, "workload matrix")
         for r, (_, _, fi, wi) in zip(rows, spec.points()):
             wname, sname = list(wlib)[wi], BITWISE_SCEN[fi]
             hwm = r["inflight_max"]
@@ -1015,15 +1243,16 @@ def phase_workloads(results: dict) -> None:
                 raise AssertionError(f"workload matrix: {proto} {wname}/"
                                      f"{sname} in flight {hwm} past the "
                                      f"cap {caps[wname]}")
-        prof = tick_profile("workloads", proto, None, 200, 50, cfg=cfg,
+        prof = tick_profile("workloads", proto, None, 200, 200, cfg=cfg,
                             spec=spec)
         log("workloads", f"{proto} matrix: {len(rows)} lanes x {ticks} "
                          f"ticks: wall {wall!r} s, {wall / ticks * 1e3!r} "
-                         f"ms/tick, channel_ring_commit launches "
-                         f"{launches} ({launches / ticks!r} per tick)")
+                         f"ms/tick; {_graph_line(launches)}")
         matrix[proto] = {"wall_s": wall, "ms_per_tick": wall / ticks * 1e3,
-                         "launches": launches,
-                         "launches_per_tick": launches / ticks,
+                         "launches": launches["channel_ring_commit"],
+                         "graph_launches":
+                             launches["channel_ring_commit_graph"],
+                         "launches_per_tick": commits / ticks,
                          "profile": prof}
     for proto, rate in WL_ANALYTIC.items():
         t0 = time.perf_counter()
@@ -1078,6 +1307,7 @@ def phase_workloads(results: dict) -> None:
                  for rate, _, fi, _ in spec.points()]
         off, wall_off, l_off = _counted(proto, cfg_off, spec)
         on, wall_on, l_on = _counted(proto, cfg_on, spec)
+        _check_launches(proto, l_off, ticks, "robustness, telemetry off")
         _check_launches(proto, l_on, ticks, "robustness, telemetry on")
         # telemetry adds keys (obs, mon, the phase breakdown) and moves
         # no metric
@@ -1108,9 +1338,9 @@ def phase_workloads(results: dict) -> None:
         trace = export.chrome_trace(on[i], cfg_on, proto,
                                     scenario=lib["paper-ddos"])
         export.validate(trace)
-        p_off = tick_profile("robustness", proto, None, 100, 25,
+        p_off = tick_profile("robustness", proto, None, 100, 200,
                              cfg=cfg_off, spec=spec)
-        p_on = tick_profile("robustness", proto, None, 100, 25, cfg=cfg_on,
+        p_on = tick_profile("robustness", proto, None, 100, 200, cfg=cfg_on,
                             spec=spec)
         per = lambda p, k: p[k] if p else float("nan")  # noqa: E731
         merged = monitor.merge_verdicts([monitor.verdict(r) for r in on])
@@ -1131,8 +1361,12 @@ def phase_workloads(results: dict) -> None:
         robust[proto] = {"wall_off_s": wall_off, "wall_on_s": wall_on,
                          "ms_per_tick_off": wall_off / ticks * 1e3,
                          "ms_per_tick_on": wall_on / ticks * 1e3,
-                         "launches": l_on, "profile_off": p_off,
-                         "profile_on": p_on}
+                         "launches": l_on["channel_ring_commit"],
+                         "graph_launches":
+                             l_on["channel_ring_commit_graph"],
+                         "capture_s_off": l_off["_programs"]["capture_s"],
+                         "capture_s_on": l_on["_programs"]["capture_s"],
+                         "profile_off": p_off, "profile_on": p_on}
     out["robustness"] = robust
     log("time", f"workloads (c) {time.perf_counter() - t_part!r} s")
 
@@ -1296,8 +1530,7 @@ def phase_reduced(results: dict) -> None:
                 if r["sketch"][k].shape != (sketch.SKETCH_BINS,):
                     raise AssertionError(f"({part}) {proto} {name}: sketch "
                                          f"{k} {r['sketch'][k].shape}")
-        _check_launches(proto, counts["channel_ring_commit"], ticks,
-                        f"({part}) reduced")
+        _check_launches(proto, counts, ticks, f"({part}) reduced")
         if counts["sketch_buckets"] != 1 or len(cap.calls) != 1:
             raise AssertionError(f"({part}) {proto}: expected 1 "
                                  f"sketch_buckets launch, got {counts}")
@@ -1310,8 +1543,8 @@ def phase_reduced(results: dict) -> None:
                        f"ticks: wall {wall!r} s, {wall / ticks * 1e3!r} "
                        f"ms/tick (unreduced {full_walls[proto]!r} s, "
                        f"{full_walls[proto] / ticks * 1e3!r} ms/tick); "
-                       f"launches {counts['channel_ring_commit']} "
-                       f"channel_ring_commit, {counts['sketch_buckets']} "
+                       f"{_graph_line(counts)}, "
+                       f"{counts['sketch_buckets']} "
                        f"sketch_buckets; {', '.join(leaves)} bitwise equal "
                        f"to the unreduced rows; bytes read back per row "
                        f"{red_b!r} reduced, {full_b!r} unreduced; sketch "
@@ -1724,16 +1957,36 @@ def _kernel_modules() -> dict:
             "ssm_scan": sk, "decode_attention": dk, "sketch_buckets": bk}
 
 
+_PROGRAM_TOTALS: dict = {}
+
+
 def _reset_counts():
+    """Every wrapper's launch count, and the tick programs' accounting
+    (core/compile_cache.py), to 0; the accounting so far is added to
+    ``_PROGRAM_TOTALS`` first."""
+    from repro_torch.core import compile_cache
+    for k, v in compile_cache.stats().items():
+        _PROGRAM_TOTALS[k] = _PROGRAM_TOTALS.get(k, 0) + v
     for k in _kernel_modules().values():
         if hasattr(k, "route_counts"):    # flash: launch_count is their sum
             k.route_counts.update(dict.fromkeys(k.route_counts, 0))
         else:
             k.launch_count = 0
+    compile_cache.reset_stats()
 
 
 def _counts() -> dict:
-    return {name: k.launch_count for name, k in _kernel_modules().items()}
+    """Each wrapper's launches since the last reset, plus the commit
+    kernel's launches by the tick graphs' replays (``_graph``) and the
+    programs' accounting (``_programs``): on the card a wrapper launches
+    its kernel for a run's eager warm-up tick and once into the graph it
+    captures; the replays launch the graph's kernel nodes."""
+    from repro_torch.core import compile_cache
+    out = {name: k.launch_count for name, k in _kernel_modules().items()}
+    out["channel_ring_commit_graph"] = compile_cache.graph_kernel_launches(
+        COMMIT_KERNEL)
+    out["_programs"] = compile_cache.stats()
+    return out
 
 
 def phase_prefill(results: dict, model) -> None:
@@ -2490,6 +2743,10 @@ def kernel_entries(results: dict) -> list:
         "source": "src/repro_torch/csrc/channel_ring.cu",
         "replaces": "src/repro/kernels/channel_ring/kernel.py:36",
         "launches": results["launches"],
+        # on the main path the wrapper launches for the warm-up tick and
+        # into the graph it captures; the graph's replays launch the rest
+        "graph_launches": results["graph_launches"],
+        "commits": results["commits"],
         "max_abs_err": results["max_abs_err"],
         "ms": sp["ms"],
         "plain_ms": sp["plain_ms"],
@@ -2500,7 +2757,7 @@ def kernel_entries(results: dict) -> list:
         "per_layout": results["per_layout"],
         "tick_profile": results.get("profile"),
         "launches_per_tick": {
-            "mandator-sporades": results["launches"] / 10_000,
+            "mandator-sporades": results["commits"] / 10_000,
             **{p: results["protocols"][p]["launches_per_tick"]
                for p in ("mandator-paxos", "multipaxos", "mandator")}},
         "protocol_grids": {p: results["protocols"][p]
@@ -2669,6 +2926,7 @@ def main() -> int:
     timed("main", phase_main, results)
     timed("profile", phase_profile, results)
     timed("whole path", phase_whole_path)
+    timed("graph", phase_graph, results)
     timed("protocols", phase_protocols, results)
     timed("model kernels", phase_model_kernels, results)
     model = _smollm()
@@ -2682,6 +2940,17 @@ def main() -> int:
     timed("prefill bf16", phase_prefill_bf16, results)
     timed("workloads", phase_workloads, results)
     timed("reduced sweeps", phase_reduced, results)
+    _reset_counts()
+    from repro_torch.core import compile_cache
+    tot = _PROGRAM_TOTALS
+    log("graph", f"the whole script: {tot['captures']} tick programs "
+                 f"captured in {tot['capture_s']!r} s "
+                 f"({tot['capture_s'] / max(tot['captures'], 1)!r} s "
+                 f"each), {tot['replays']} replays launching "
+                 f"{tot['graph_kernel_launches']} kernels, "
+                 f"{tot['eager_ticks']} ticks run eagerly, "
+                 f"{compile_cache.programs()} programs held at the end")
+    log("time", f"all phases {time.perf_counter() - start!r} s")
 
     kernels = kernel_entries(results)
     print(card)

@@ -2,11 +2,13 @@
 
   PYTHONPATH=src python -m repro_torch.analysis \\
       [--rules R1,R4,...] [--baseline baseline.json] [--json findings.json]
+      [--graph [--device cuda] [--sim-seconds 2.0]]
 
 Exit codes: 0 clean (active findings == 0), 1 findings, 2 internal
-error. The reference's ``--hlo`` audit has no counterpart here: the
-port's is the check that one tick captures as a CUDA graph (ROADMAP
-A7b).
+error. ``--graph`` also audits the captured tick program of every scan
+protocol (``graph_lint.py``, G1-G4, the counterpart of the reference's
+``--hlo``): on the CPU by default (G1, G2 and the host sides of G3 and
+G4), on the card with ``--device cuda`` (the captures too).
 """
 from __future__ import annotations
 
@@ -39,7 +41,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="python -m repro_torch.analysis",
         description="the port's AST lint (R1 host-sync, R2 dtype-hygiene, "
-                    "R4 drop-mask, R5 carry-hygiene)")
+                    "R4 drop-mask, R5 carry-hygiene) and its audit of "
+                    "the captured tick program (G1-G4)")
     ap.add_argument("--root", default=None,
                     help="source tree to lint (default: the "
                          "src/repro_torch this module was imported from)")
@@ -55,6 +58,14 @@ def main(argv=None) -> int:
     ap.add_argument("--json", default=None,
                     help="write the full findings list (including "
                          "allowed/baselined) as JSON")
+    ap.add_argument("--graph", action="store_true",
+                    help="also audit each scan protocol's captured tick "
+                         "program (G1-G4)")
+    ap.add_argument("--device", default="cpu",
+                    help="device of the --graph audit (default cpu; cuda "
+                         "captures and replays the programs)")
+    ap.add_argument("--sim-seconds", type=float, default=2.0,
+                    help="sweep length of the --graph audit")
     ap.add_argument("--quiet", action="store_true")
     args = ap.parse_args(argv)
 
@@ -66,6 +77,19 @@ def main(argv=None) -> int:
         print(f"error: cannot parse {e.filename}:{e.lineno}: {e.msg}",
               file=sys.stderr)
         return 2
+
+    if args.graph:
+        from repro_torch.analysis import graph_lint
+        try:
+            verdict = graph_lint.audit(report=report,
+                                       sim_seconds=args.sim_seconds,
+                                       device=args.device)
+        except Exception as e:  # noqa: BLE001 — exit 2, not a traceback
+            print(f"error: graph audit failed: {type(e).__name__}: {e}",
+                  file=sys.stderr)
+            return 2
+        if not args.quiet:
+            print(graph_lint.format_verdict(verdict))
 
     if args.baseline:
         report.apply_baseline(load_baseline(args.baseline))

@@ -28,14 +28,19 @@ from pathlib import Path
 from typing import Dict, Iterable, List, Optional, Tuple
 
 # rule keys (the pragma vocabulary). The reference's R3 (jit static
-# args) and its HLO layer (H1-H4) have no counterpart without jit and XLA
-# (lint.py's docstring says why)
+# args) has no counterpart without jit (lint.py's docstring says why); its
+# HLO layer's H1-H4 have theirs in G1-G4 over the captured tick graph
+# (graph_lint.py)
 RULE_KEYS = {
     "R1": "host-sync",
     "R2": "dtype-hygiene",
     "R4": "drop-mask",
     "R5": "carry-hygiene",
     "P0": "pragma",
+    "G1": "graph-f64",
+    "G2": "graph-host-sync",
+    "G3": "graph-loop",
+    "G4": "graph-signature",
 }
 KEY_RULES = {v: k for k, v in RULE_KEYS.items()}
 

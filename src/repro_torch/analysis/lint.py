@@ -13,9 +13,12 @@ runs:
                      tensor, a tensor as an ``if`` / ``while`` / ``assert``
                      test or conditional expression, ``print``, and
                      ``np.asarray`` / ``np.array`` of a tensor. A tick
-                     captured as a CUDA graph (ROADMAP A7b) cannot hold
-                     one. Python scalars (a tick's ``t``, ``cfg`` fields)
-                     are no sync and are not flagged.
+                     captured as a CUDA graph (``core/compile_cache.py``)
+                     cannot hold one. The tick index ``t`` is a 0-dim
+                     device tensor: a parameter ``t`` is a tensor unless
+                     annotated otherwise, so ``float(t)`` or ``int(t)``
+                     in a tick is a finding. ``cfg`` fields are Python
+                     scalars: no sync, not flagged.
   R2 dtype-hygiene   no float64 (``torch.float64`` / ``torch.double`` /
                      ``np.float64``, ``.double()``, ``dtype=float`` or
                      ``"float64"``, ``astype(float)``) unless justified:
@@ -32,9 +35,12 @@ runs:
 
 The reference's R3 (``SMRConfig`` fields steering control flow in traced
 code must be jit-static) has no counterpart: the port compiles nothing
-with jit; its tick is a Python loop in which ``cfg`` is an ordinary
-argument. Neither has the reference's HLO layer (``hlo_lint``): A7b's
-check that one tick captures as a CUDA graph takes its place.
+with jit. ``cfg`` steers the Python of a tick as it is captured, and the
+captured program's key holds the whole config (``harness._program_key``),
+so a config that branches otherwise is another program. The reference's
+HLO layer (``hlo_lint``, H1-H4) has its counterpart in
+``analysis/graph_lint.py`` (G1-G4), over the captured tick graph
+(``python -m repro_torch.analysis --graph``).
 
 Whether an expression is a tensor is judged positively and per function:
 a parameter annotated ``torch.Tensor``, a ``torch.*`` call that returns
@@ -341,6 +347,8 @@ class _Tensors:
                 else None
             if ann and ann.split(".")[-1] == "Tensor":
                 self.names.add(a.arg)
+            elif a.arg == "t" and a.annotation is None:
+                self.names.add(a.arg)       # the tick index
         assigns = [n for n in Index._own_body(fn.node)
                    if isinstance(n, (ast.Assign, ast.AugAssign,
                                      ast.AnnAssign))]

@@ -15,6 +15,11 @@ clear, one scatter-max and one scatter-add, through
 the tick's sends where they lie; the plain PyTorch version (the CPU path)
 first merges each send with its mask (``commit_entries``) and packs the
 entries. The port updates the ring in place.
+
+The tick ``t`` is a 0-dim int32 tensor on the ring's device (a Python int
+is converted): the delivered slot ``t % D`` and every target slot are
+computed on the device, and the CUDA kernel reads ``t`` from device
+memory, so a tick captured as a CUDA graph replays at any ``t``.
 """
 from __future__ import annotations
 
@@ -25,6 +30,7 @@ from typing import Dict, List, NamedTuple, Tuple
 import numpy as np
 import torch
 
+from repro_torch import device as _device
 from repro_torch.kernels.channel_ring import kernel as ring_kernel
 from repro_torch.kernels.channel_ring import ops as ring_ops
 
@@ -99,7 +105,11 @@ class RingSpec:
         return (self.offset(name), c.width, self.flag(name), c.additive)
 
 
-@functools.lru_cache(maxsize=32)
+# The caches below that hold device tensors are unbounded: a captured tick
+# graph (core/compile_cache.py) reads them where they lie, so none may be
+# evicted and freed while a graph lives. Their keys are a protocol's few
+# layouts and devices.
+@functools.lru_cache(maxsize=None)
 def fill_tensor(spec: RingSpec, device: torch.device) -> torch.Tensor:
     """``spec.fill()`` on ``device``, made once so a tick copies nothing
     from the host."""
@@ -120,7 +130,7 @@ def ring_occupancy(spec: RingSpec, ring: Dict[str, torch.Tensor]
     return held * _reciprocal(held, full.shape[1])
 
 
-@functools.lru_cache(maxsize=64)
+@functools.lru_cache(maxsize=None)
 def _flag_index(spec: RingSpec, device: torch.device) -> torch.Tensor:
     """The flag fields' offsets in the packed ring, on ``device``."""
     return torch.tensor([spec.flag(c.name) for c in spec.channels],
@@ -148,13 +158,17 @@ def make_ring(spec: RingSpec, dmax: int, n: int, batch: int,
     return {"buf": buf.contiguous()}
 
 
-def ring_deliver(spec: RingSpec, ring: Dict[str, torch.Tensor], t: int
+def ring_deliver(spec: RingSpec, ring: Dict[str, torch.Tensor],
+                 t: torch.Tensor
                  ) -> Dict[str, Tuple[torch.Tensor, torch.Tensor]]:
     """Read slot t of every channel at once. Returns {name: (flags
     [B, n, n] bool, payload [B, n, n, P])}. The slot is copied out: the
     in-place ``ring_commit`` clears it later in the tick (sends never
     target slot t, so the clear commutes across the tick)."""
-    slot = ring["buf"][:, t % ring["buf"].shape[1]].clone()   # [B,n,n,K]
+    buf = ring["buf"]
+    t = _device.tick_index(t, buf.device)
+    at = (t % buf.shape[1]).long().view(1)
+    slot = buf.index_select(1, at)[:, 0]                      # [B,n,n,K]
     out = {}
     for c in spec.channels:
         off = spec.offset(c.name)
@@ -170,7 +184,8 @@ def send_layout(spec: RingSpec, names: Tuple[str, ...]
     return tuple(spec.layout(n) for n in names)
 
 
-def commit_entries(spec: RingSpec, dmax: int, t: int, sends: List[Send],
+def commit_entries(spec: RingSpec, dmax: int, t: torch.Tensor,
+                   sends: List[Send],
                    drop: torch.Tensor | None = None):
     """A tick's sends as the commit's entries and static layout: per send,
     (target slot [B, n, n] int32, payload with the merge-neutral value
@@ -184,6 +199,8 @@ def commit_entries(spec: RingSpec, dmax: int, t: int, sends: List[Send],
         raise ValueError(f"additive channel sent twice in one tick: "
                          f"{add_names}")
     entries, layout = [], []
+    if sends:
+        t = _device.tick_index(t, sends[0].delay_ticks.device)
     for s in sends:
         c = spec[s.name]
         mask = s.mask if drop is None else s.mask & ~drop
@@ -195,7 +212,8 @@ def commit_entries(spec: RingSpec, dmax: int, t: int, sends: List[Send],
     return entries, layout
 
 
-def ring_commit(spec: RingSpec, ring: Dict[str, torch.Tensor], t: int,
+def ring_commit(spec: RingSpec, ring: Dict[str, torch.Tensor],
+                t: torch.Tensor,
                 sends: List[Send], drop: torch.Tensor | None = None,
                 backend: str = "auto") -> Dict[str, torch.Tensor]:
     """Fused commit of one tick, in place: clear the delivered slot
@@ -203,6 +221,7 @@ def ring_commit(spec: RingSpec, ring: Dict[str, torch.Tensor], t: int,
     scenario link-cut mask, applied to every send (silent omission)."""
     buf = ring["buf"]
     fill = fill_tensor(spec, buf.device)
+    t = _device.tick_index(t, buf.device)
     if ring_ops.resolve_backend(backend, buf.device) == "cuda":
         layout = send_layout(spec, tuple(s.name for s in sends))
         ring_kernel.ring_commit_fused(buf, t, fill, sends, drop, layout)

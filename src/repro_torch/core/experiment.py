@@ -23,9 +23,20 @@ The analytic baselines (epaxos / rabia) have no tick loop; they are looped
 on the host behind the same API, and touch no device.
 
 ``dispatch_sweep`` returns a ``PendingSweep`` as the reference's does, but
-runs the grid before it returns: the host loop over ticks is what drives
-the device, so there is nothing left to overlap with a later dispatch.
-``collect()`` only hands the rows over.
+runs the grid before it returns; ``collect()`` only hands the rows over.
+
+**Programs.** On the card a grid's tick loop is one captured tick replayed
+(``harness._scan_body``, ``core/compile_cache.py``), the counterpart of the
+reference's compiled sweep program. With ``canonical=True`` (the default,
+as the reference's) the grid's shape axes round to the canonical program
+signature: window tables pad to a power of two of at least
+``CANONICAL_MIN_WINDOWS`` rows (pad rows are never indexed), the auto
+horizon floors at ``netsim.CANONICAL_HORIZON``, so that sweeps of one
+protocol and config with equal ``ProgramSignature``s (``_signature``)
+replay one captured program. The port keeps a grid's points as the lanes
+of its one program (the reference pins its program to one lane).
+``capture_counts``, ``program_signatures`` and ``compile_report`` account
+for the programs, as the reference's ``trace_counts`` and friends.
 
 **The reduced path** (``mesh=``, the reference's sharded sweep engine):
 the flattened grid's lanes split over a grid of devices
@@ -50,7 +61,9 @@ from repro_torch import device as _device
 from repro_torch import scenarios as sc
 from repro_torch import workloads as wlc
 from repro_torch.configs.smr import SMRConfig
-from repro_torch.core import harness, netsim
+from repro_torch.core import compile_cache, harness, netsim
+from repro_torch.core import workload as wlmod
+from repro_torch.core.compile_cache import ProgramSignature
 from repro_torch.core.epaxos import run_epaxos_model
 from repro_torch.core.rabia import run_rabia_model
 from repro_torch.distributed import mesh as dmesh
@@ -58,7 +71,45 @@ from repro_torch.distributed import mesh as dmesh
 ANALYTIC_PROTOCOLS = ("epaxos", "rabia")
 _ANALYTIC_MODELS = {"epaxos": run_epaxos_model, "rabia": run_rabia_model}
 
+# the window-table floor of a canonical lowering, the reference's
+CANONICAL_MIN_WINDOWS = 32
+
 _TIMING: Dict[str, Dict[str, float]] = {}
+_SIGNATURES: Dict[str, set] = {}
+
+
+def _canon_pow2(x: int, floor: int) -> int:
+    """Next power of two >= x, floored at ``floor``."""
+    return max(floor, 1 << (max(1, x) - 1).bit_length())
+
+
+def capture_counts() -> Dict[str, int]:
+    """Tick programs captured per protocol since the last reset (the
+    reference's ``trace_counts``): a grid that replays a stored program
+    counts 0."""
+    return compile_cache.capture_counts()
+
+
+def reset_capture_counts() -> None:
+    """Reset the capture counters and the signature sets (the stored
+    programs stay: a reused program still counts 0 captures)."""
+    compile_cache.reset_stats()
+    _SIGNATURES.clear()
+
+
+def program_signatures() -> Dict[str, tuple]:
+    """Distinct ``ProgramSignature``s of the sweeps run per protocol since
+    the last ``reset_capture_counts()``."""
+    return {p: tuple(sorted(s)) for p, s in _SIGNATURES.items()}
+
+
+def compile_report() -> Dict:
+    """Program accounting: captures and distinct signatures per protocol
+    (since the last reset) plus ``compile_cache.stats()``."""
+    return {"captures": capture_counts(),
+            "programs": {p: len(s) for p, s in _SIGNATURES.items()},
+            "signatures": program_signatures(),
+            "cache": compile_cache.stats()}
 
 
 def timing_stats() -> Dict[str, Dict[str, float]]:
@@ -95,19 +146,24 @@ class SweepSpec:
                 * len(self.workloads))
 
 
-def _lower(cfg: SMRConfig, spec: SweepSpec, device: torch.device):
+def _lower(cfg: SMRConfig, spec: SweepSpec, device: torch.device,
+           canonical: bool = False):
     """Flatten the grid to a batched env, per-lane rates (per replica per
     tick) and seeds, the workload mode (judged on the unpadded lowerings)
-    and the horizon-resolved cfg."""
+    and the horizon-resolved cfg. ``canonical`` pads the window tables and
+    floors the horizon to the canonical program signature (module
+    docstring)."""
     pts = list(spec.points())
     stabs = [sc.lower(cfg, sc.as_scenario(f)) for f in spec.scenarios]
     n_windows = max(t["alive"].shape[0] for t in stabs)
+    if canonical:
+        n_windows = _canon_pow2(n_windows, CANONICAL_MIN_WINDOWS)
     # build_env gets the ORIGINAL cfg, so its static-delay validation sees
     # the user's auto-vs-pinned intent; the lanes share the sweep-wide
     # resolved horizon
     envs = [netsim.build_env(cfg, f, n_windows, tab=t, device=device)
             for f, t in zip(spec.scenarios, stabs)]
-    cfg = netsim.resolve_horizon(cfg, tabs=stabs)
+    cfg = netsim.resolve_horizon(cfg, tabs=stabs, canonical=canonical)
     mode = wlc.mode_of([wlc.lower(cfg, w) for w in spec.workloads])
     env_b = netsim.stack_envs([envs[fi] for _, _, fi, _ in pts])
     # lint: allow(dtype-hygiene): per-replica Poisson rate per tick,
@@ -119,16 +175,51 @@ def _lower(cfg: SMRConfig, spec: SweepSpec, device: torch.device):
     return pts, cfg, mode, env_b, rate_b, seed_b
 
 
-def _lower_workloads(cfg: SMRConfig, spec: SweepSpec) -> Dict:
+def _lower_workloads(cfg: SMRConfig, spec: SweepSpec,
+                     canonical: bool = False) -> Dict:
     """The grid's workload tables stacked per lane (numpy), every workload
-    padded to the grid's window count: rate_of [B, W, n], win_of_tick
-    [B, T], closed / think_ticks / cap [B]. ``win_start`` is host-side
-    metadata of ragged width and stays out."""
+    padded to the grid's window count (``canonical``: to the canonical
+    one): rate_of [B, W, n], win_of_tick [B, T], closed / think_ticks /
+    cap [B]. ``win_start`` is host-side metadata of ragged width and stays
+    out."""
     pad = max(wlc.compile.n_windows(cfg, w) for w in spec.workloads)
+    if canonical:
+        pad = _canon_pow2(pad, CANONICAL_MIN_WINDOWS)
     tabs = [wlc.lower(cfg, w, pad_windows=pad) for w in spec.workloads]
     widx = [wi for _, _, _, wi in spec.points()]
     return {k: np.stack([tabs[wi][k] for wi in widx])
             for k in tabs[0] if k != "win_start"}
+
+
+def _signature_of(cfg: SMRConfig, mode, env_b: Dict, wlt: Dict, rate_b,
+                  sampling: bool = True) -> ProgramSignature:
+    """The ``ProgramSignature`` of a lowered sweep (``_lower`` and
+    ``_lower_workloads``' results): replicas, ticks, lanes, the padded
+    window rows, the resolved horizon, the workload mode and, where closed
+    lanes sample an epoch stream (``sampling``: no replayed ``draws``),
+    its width ``workload.epoch_slots``."""
+    slots = 0
+    if mode.closed and sampling:
+        slots = wlmod.epoch_slots(max(
+            wlmod.epoch_count(rate_b[b], wlt, b) if wlt["closed"][b] > 0
+            else 0 for b in range(len(rate_b))))
+    return ProgramSignature(
+        n=cfg.n_replicas, ticks=netsim.sim_ticks(cfg), lanes=len(rate_b),
+        scen_windows=int(env_b["alive_tab"].shape[1]),
+        wl_windows=int(wlt["rate_of"].shape[1]),
+        horizon=int(cfg.delay_horizon_ticks), trivial=mode.trivial,
+        closed=mode.closed, epoch_slots=slots)
+
+
+def _signature(cfg: SMRConfig, spec: SweepSpec, canonical: bool = True,
+               sampling: bool = True) -> ProgramSignature:
+    """The ``ProgramSignature`` a sweep of ``spec`` runs under, lowered on
+    the CPU (the reference's ``_lower(...)[-1]``)."""
+    _, rcfg, mode, env_b, rate_b, _ = _lower(cfg, spec, torch.device("cpu"),
+                                             canonical)
+    return _signature_of(rcfg, mode, env_b,
+                         _lower_workloads(rcfg, spec, canonical), rate_b,
+                         sampling)
 
 
 class PendingSweep:
@@ -206,7 +297,7 @@ def _blocks(n_real: int, n_dev: int):
 
 def _scan_rows(protocol: str, cfg: SMRConfig, spec: SweepSpec,
                wl_names: List[str], device, draws, epochs,
-               mesh=None) -> List[Dict]:
+               mesh=None, canonical: bool = True) -> List[Dict]:
     devices = dmesh.as_grid_mesh(mesh)
     reduced = devices is not None
     if reduced and device is not None:
@@ -215,9 +306,13 @@ def _scan_rows(protocol: str, cfg: SMRConfig, spec: SweepSpec,
     if not reduced:
         devices = [_device.resolve(device)]
     t0 = time.perf_counter()
-    pts, cfg, mode, env_b, rate_b, seed_b = _lower(cfg, spec, devices[0])
+    pts, cfg, mode, env_b, rate_b, seed_b = _lower(cfg, spec, devices[0],
+                                                   canonical)
     harness.check_supported(protocol, cfg, mode)
-    wlt = _lower_workloads(cfg, spec)
+    wlt = _lower_workloads(cfg, spec, canonical)
+    _SIGNATURES.setdefault(protocol, set()).add(_signature_of(
+        cfg, mode, env_b, wlt, rate_b,
+        sampling=draws is None or epochs is not None))
     seed_b = np.asarray(seed_b)
     blocks = (_blocks(len(pts), len(devices)) if reduced
               else [slice(None)])
@@ -273,9 +368,9 @@ def dispatch_sweep(protocol: str, cfg: SMRConfig, spec: SweepSpec,
     ``mesh`` selects the reduced path (module docstring): an int (the
     first N CUDA devices) or a sequence of devices
     (``distributed.mesh.as_grid_mesh``); ``device`` must then be None.
-    Analytic protocols ignore it. ``canonical`` is accepted for the
-    reference's signature and ignored: the port compiles no program whose
-    shapes it would pin."""
+    Analytic protocols ignore it. ``canonical`` rounds the grid's shapes
+    to the canonical program signature (module docstring); the rows do not
+    depend on it."""
     wl_names = [wlc.as_workload(w).name for w in spec.workloads]
     if protocol in ANALYTIC_PROTOCOLS:
         if draws is not None or epochs is not None:
@@ -284,7 +379,8 @@ def dispatch_sweep(protocol: str, cfg: SMRConfig, spec: SweepSpec,
         return PendingSweep(protocol,
                             _analytic_rows(protocol, cfg, spec, wl_names))
     return PendingSweep(protocol, _scan_rows(protocol, cfg, spec, wl_names,
-                                             device, draws, epochs, mesh))
+                                             device, draws, epochs, mesh,
+                                             canonical))
 
 
 def run_sweep(protocol: str, cfg: SMRConfig, spec: SweepSpec, device=None,

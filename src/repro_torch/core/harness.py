@@ -11,9 +11,18 @@ The analytic baselines (epaxos, rabia) have no tick loop; the sweep engine
 (core/experiment.py) runs them on the host.
 
 ``sim_point`` runs the tick loop for every lane of a batched env at once —
-a Python loop over ticks whose per-tick outputs land in preallocated
-``[B, T, ...]`` tensors — then extracts the metrics on the device
-(searchsorted commit reconstruction, weighted quantiles, timelines). Every
+per-tick outputs land in preallocated ``[B, T, ...]`` tensors — then
+extracts the metrics on the device (searchsorted commit reconstruction,
+weighted quantiles, timelines). The tick index ``t`` is a 0-dim int32
+tensor on the run's device, advanced in place at each tick's end; no op
+of a tick reads it back. On the CPU the loop is a Python loop over ticks.
+On the card it is one captured tick replayed (``_scan_body``,
+``core/compile_cache.py``): tick 0 runs eagerly as the warm-up, one tick
+is captured as a CUDA graph — protocol ticks, monitor, trace writes and
+``t += 1`` — and the graph replays for ticks 1 .. n-1. A capture or a
+replay that fails raises; nothing falls back to the eager loop, which
+the card runs only inside ``_eager_on_card()`` (the graph's parity
+checks). Every
 workload mode runs: the §5.2 baseline, windowed rate tables and closed
 loops (whose in-flight feedback, ``_closed_feedback``, runs after the
 protocol ticks); so does every ``trace_level`` (the layers' flight
@@ -30,6 +39,7 @@ takes their place.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Dict, Optional, Sequence
 
@@ -38,6 +48,7 @@ import torch
 from repro_torch import device as _device
 from repro_torch.configs.smr import SMRConfig
 from repro_torch.core import channel as ch
+from repro_torch.core import compile_cache
 from repro_torch.core import mandator, netsim, paxos, sporades
 from repro_torch.core import workload as wlmod
 from repro_torch.distributed import sketch as dsketch
@@ -215,10 +226,11 @@ def _arrivals(draws) -> wlmod.Arrivals:
     return wlmod.Arrivals(draws)
 
 
-def _tick(carry: Dict, t: int, arr: wlmod.Arrivals, env: Dict,
+def _tick(carry: Dict, t: torch.Tensor, arr: wlmod.Arrivals, env: Dict,
           cfg: SMRConfig, protocol: str, grace: Optional[torch.Tensor]):
-    """One tick of ``protocol``; returns (carry, per-tick outputs that are
-    not read off the carry: the closed loop's in-flight counts)."""
+    """One tick of ``protocol`` at tick ``t`` (a 0-dim int32 tensor);
+    returns (carry, per-tick outputs that are not read off the carry: the
+    closed loop's in-flight counts)."""
     carry = dict(carry)
     out = {}
     if "m" in carry:
@@ -243,7 +255,7 @@ def _tick(carry: Dict, t: int, arr: wlmod.Arrivals, env: Dict,
     return carry, out
 
 
-def step(carry: Dict, t: int, draws, env: Dict, cfg: SMRConfig,
+def step(carry: Dict, t: torch.Tensor, draws, env: Dict, cfg: SMRConfig,
          protocol: str = "mandator-sporades",
          grace: Optional[torch.Tensor] = None) -> Dict:
     """One tick of ``protocol``. Mandator runs first where it is composed;
@@ -251,7 +263,9 @@ def step(carry: Dict, t: int, draws, env: Dict, cfg: SMRConfig,
     [B, T, n] draw table (trivial mode) or a ``workload.Arrivals``; the
     clients' arrivals land in Mandator or (multipaxos) Paxos. ``grace``:
     the monitor's stall window, where the carry holds a monitor (default:
-    ``monitor.stall_grace_ticks``)."""
+    ``monitor.stall_grace_ticks``). ``t``: the tick, a 0-dim int32 tensor
+    on the env's device (a Python int is converted)."""
+    t = _device.tick_index(t, env["delays"].device)
     if grace is None and "mon" in carry:
         grace = hmon.stall_grace_ticks(cfg, env)
     return _tick(carry, t, _arrivals(draws), env, cfg, protocol, grace)[0]
@@ -313,13 +327,71 @@ def init_run(protocol: str, cfg: SMRConfig, n_ticks: int, env: Dict,
     return carry, grace
 
 
-def _scan_body(protocol: str, cfg: SMRConfig, n_ticks: int, env: Dict,
-               draws, batch: int, device: torch.device,
-               reduced: bool = False):
-    """The tick loop. ``draws``: a [B, T, n] draw table (trivial mode) or
-    a ``workload.Arrivals``. Returns (final carry, trace) with trace
-    leaves [B, T, ...] (``_trace_leaves``, plus ``inflight`` [B, T, n] in
-    closed mode)."""
+_EAGER_ON_CARD = False
+
+
+@contextlib.contextmanager
+def _eager_on_card():
+    """Inside this block, tick loops on the card run eagerly, one Python
+    iteration per tick, instead of as a captured graph: the reference the
+    graph's parity checks (chip_smoke.py, tests/test_torch_graph_cuda.py)
+    and tools/tick_ab.py hold it against. Private on purpose: it is no
+    config field, and nothing enters it on a failure."""
+    global _EAGER_ON_CARD
+    before, _EAGER_ON_CARD = _EAGER_ON_CARD, True
+    try:
+        yield
+    finally:
+        _EAGER_ON_CARD = before
+
+
+# lint: traced-root
+def _loop_tick(carry: Dict, t: torch.Tensor, arr: wlmod.Arrivals,
+               env: Dict, cfg: SMRConfig, protocol: str,
+               grace: Optional[torch.Tensor], leaves: Dict,
+               trace: Dict) -> Dict:
+    """One iteration of the tick loop, as the graph captures it: the tick,
+    its trace columns written at ``t`` on the device, and ``t += 1`` in
+    place."""
+    carry, out = _tick(carry, t, arr, env, cfg, protocol, grace)
+    at = t.long().view(1)
+    for k, (_, _, leaf) in leaves.items():
+        trace[k].index_copy_(1, at, leaf(carry).to(trace[k].dtype)[:, None])
+    if arr.mode.closed:
+        trace["inflight"].index_copy_(1, at, out["inflight"][:, None])
+    t.add_(1)
+    return carry
+
+
+def _tree_key(tree, path=()):
+    """(path, shape, dtype, device) of every tensor leaf; None leaves and
+    their place included."""
+    if isinstance(tree, dict):
+        return tuple(x for k in sorted(tree)
+                     for x in _tree_key(tree[k], path + (k,)))
+    if tree is None:
+        return ((path, None),)
+    return ((path, tuple(tree.shape), tree.dtype, tree.device),)
+
+
+def _program_key(protocol: str, cfg: SMRConfig, arr: wlmod.Arrivals,
+                 reduced: bool, carry: Dict, inputs: Dict) -> tuple:
+    """What one captured tick depends on besides its buffers' contents:
+    the protocol, the config (every field: the statics a tick branches
+    on), the workload mode and how its arrivals are read, the reduced
+    flag, and the shape, dtype and device of every carry leaf and input.
+    Sweeps with equal ``experiment.ProgramSignature``s under an equal
+    protocol, config and mode have equal keys."""
+    return (protocol, cfg, arr.mode, arr.sampling, arr.cut is not None,
+            reduced, _tree_key(carry), _tree_key(inputs))
+
+
+def _setup(protocol: str, cfg: SMRConfig, n_ticks: int, env: Dict, draws,
+           batch: int, device: torch.device, reduced: bool = False) -> Dict:
+    """Everything a tick loop runs on, at tick 0: the carry and the
+    monitor's stall window (``init_run``), the trace's leaves and buffers,
+    the tick index ``t`` (a 0-dim int32 tensor, 0) and the graph's inputs
+    ({"in": read, "out": written in place})."""
     arr = _arrivals(draws)
     carry, grace = init_run(protocol, cfg, n_ticks, env, arr, batch, device)
     leaves = _trace_leaves(protocol, cfg, reduced)
@@ -329,13 +401,77 @@ def _scan_body(protocol: str, cfg: SMRConfig, n_ticks: int, env: Dict,
     if arr.mode.closed:
         trace["inflight"] = torch.empty((batch, n_ticks, cfg.n_replicas),
                                         dtype=torch.float32, device=device)
-    for t in range(n_ticks):
-        carry, out = _tick(carry, t, arr, env, cfg, protocol, grace)
-        for k, (_, _, leaf) in leaves.items():
-            trace[k][:, t] = leaf(carry)
-        if arr.mode.closed:
-            trace["inflight"][:, t] = out["inflight"]
-    return carry, trace
+    inputs = {"in": {"env": env, "draws": arr.draws, "wlt": arr.wlt,
+                     "rate": arr.rate, "epochs": arr.epochs,
+                     "grace": grace},
+              "out": {"trace": trace, "cut": arr.cut}}
+    return {"arr": arr, "carry": carry, "grace": grace, "leaves": leaves,
+            "trace": trace, "inputs": inputs,
+            "t": torch.zeros((), dtype=torch.int32, device=device)}
+
+
+def _graph_tick(run: Dict, protocol: str, cfg: SMRConfig):
+    """The tick a graph captures, as ``compile_cache.run`` calls it: over
+    the program's own buffers (carry, inputs, t)."""
+    mode, leaves = run["arr"].mode, run["leaves"]
+
+    def tick(c: Dict, x: Dict, tt: torch.Tensor) -> Dict:
+        xi = x["in"]
+        a = wlmod.Arrivals(xi["draws"], mode, xi["wlt"], xi["rate"],
+                           xi["epochs"], x["out"]["cut"])
+        return _loop_tick(c, tt, a, xi["env"], cfg, protocol, xi["grace"],
+                          leaves, x["out"]["trace"])
+    return tick
+
+
+def _warm(run: Dict, protocol: str, cfg: SMRConfig) -> Dict:
+    """Run the loop's next tick eagerly; the run's carry advances."""
+    run["carry"] = _loop_tick(run["carry"], run["t"], run["arr"],
+                              run["inputs"]["in"]["env"], cfg, protocol,
+                              run["grace"], run["leaves"], run["trace"])
+    return run
+
+
+def program_key(protocol: str, cfg: SMRConfig, n_ticks: int, env: Dict,
+                draws, batch: int, device: torch.device,
+                reduced: bool = False) -> tuple:
+    """The key of the tick program a run of these inputs replays on the
+    card (``_program_key``), computed on any device: set up and warm one
+    tick, as ``_scan_body`` does before it captures. Equal keys share one
+    captured program."""
+    run = _warm(_setup(protocol, cfg, n_ticks, env, draws, batch, device,
+                       reduced), protocol, cfg)
+    return _program_key(protocol, cfg, run["arr"], reduced, run["carry"],
+                        run["inputs"])
+
+
+def _scan_body(protocol: str, cfg: SMRConfig, n_ticks: int, env: Dict,
+               draws, batch: int, device: torch.device,
+               reduced: bool = False):
+    """The tick loop. ``draws``: a [B, T, n] draw table (trivial mode) or
+    a ``workload.Arrivals``. Returns (final carry, trace) with trace
+    leaves [B, T, ...] (``_trace_leaves``, plus ``inflight`` [B, T, n] in
+    closed mode), tensors of this run alone.
+
+    On the CPU, and on the card inside ``_eager_on_card()``, the loop runs
+    one Python iteration per tick (``_loop_tick``). Otherwise tick 0 runs
+    eagerly as the warm-up, and ticks 1 .. n-1 are replays of one tick
+    captured as a CUDA graph (``compile_cache.run``; captured on the
+    first run of its program, replayed by every later one)."""
+    run = _setup(protocol, cfg, n_ticks, env, draws, batch, device, reduced)
+    if device.type != "cuda" or _EAGER_ON_CARD or n_ticks < 2:
+        for _ in range(n_ticks):
+            _warm(run, protocol, cfg)
+        compile_cache.count_eager(n_ticks)
+        return run["carry"], run["trace"]
+    _warm(run, protocol, cfg)                               # the warm-up
+    key = _program_key(protocol, cfg, run["arr"], reduced, run["carry"],
+                       run["inputs"])
+    carry, _ = compile_cache.run(key, protocol,
+                                 _graph_tick(run, protocol, cfg),
+                                 run["carry"], run["inputs"], run["t"],
+                                 n_ticks - 1)
+    return carry, run["trace"]
 
 
 def _weighted_quantile(vals: torch.Tensor, weights: torch.Tensor,
@@ -575,6 +711,14 @@ def sim_point(protocol: str, cfg: SMRConfig, env: Dict,
                         epochs)
     st, trace = _scan_body(protocol, cfg, n_ticks, env, arr, batch, dev,
                            reduced)
+    return _results(protocol, cfg, st, trace, arr, reduced)
+
+
+def _results(protocol: str, cfg: SMRConfig, st: Dict, trace: Dict,
+             arr: wlmod.Arrivals, reduced: bool = False) -> Dict:
+    """``sim_point``'s result dict from a run's final carry and trace."""
+    n_ticks = netsim.sim_ticks(cfg)
+    mode = arr.mode
     wl = st["p" if protocol == "multipaxos" else "m"]["wl"]
     if arr.cut is not None and bool(arr.cut.any()):
         raise ValueError("draws replays the closed lanes' counts after the "

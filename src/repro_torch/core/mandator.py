@@ -9,10 +9,11 @@ dissemination, batched over the grid (port of ``repro.core.mandator``):
   clock — the only thing the consensus layer ever orders.
 
 Every state tensor carries a leading lane axis ``B``. The tick takes a
-Python-int ``t`` and does no host sync. With ``trace_level`` or
-``monitor_level`` on, the state also carries the layer's flight recorder
-(``tr``) and the monitor's per-tick IO gauges (``mon_io``); the tick's
-last step records into them and reads nothing they hold.
+0-dim int32 tensor ``t`` (a Python int is converted) and does no host
+sync. With ``trace_level`` or ``monitor_level`` on, the state also
+carries the layer's flight recorder (``tr``) and the monitor's per-tick
+IO gauges (``mon_io``); the tick's last step records into them and reads
+nothing they hold.
 """
 from __future__ import annotations
 
@@ -69,13 +70,14 @@ def init_state(cfg: SMRConfig, n_ticks: int, batch: int = 1,
     }
 
 
-def tick(st: Dict, t: int, arr: workload.Arrivals, env: Dict,
+def tick(st: Dict, t: torch.Tensor, arr: workload.Arrivals, env: Dict,
          cfg: SMRConfig) -> Dict:
     """One simulator tick of every lane. arr: the arrivals the tick's
     clients read (``workload.Arrivals``)."""
     n = cfg.n_replicas
     f = (n - 1) // 2
     quorum = n - f
+    t = _device.tick_index(t, env["delays"].device)
     alive = netsim.alive(env, t)
     delays = netsim.link_delay(env, t)
     drop = netsim.link_drop(env, t)

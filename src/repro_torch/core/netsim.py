@@ -6,8 +6,9 @@ scenario-driven adversities, as device tensors (port of
 on the requested device (no Python scalars). The sweep engine stacks the
 points' envs along a leading batch axis ``B``; the per-tick accessors
 (``alive``, ``link_delay``, ``link_drop``, ``nic_rate``) take that batched
-env and a Python-int tick ``t`` and return ``[B, ...]`` tensors. They index
-on the device only, so the tick stays free of host syncs.
+env and the tick ``t``, a 0-dim int32 tensor on the env's device (a Python
+int is converted), and return ``[B, ...]`` tensors. They index on the
+device only, so the tick stays free of host syncs.
 
 Adverse conditions come in as windowed tables lowered from a declarative
 ``repro_torch.scenarios.Scenario``: ``win_of_tick [T]`` plus per-window
@@ -29,6 +30,11 @@ from repro_torch.configs.smr import SMRConfig
 # extra slots past the provable static bound: absorbs rounding and the
 # sub-tick serialization remainders without changing the power-of-two size
 _HORIZON_MARGIN_TICKS = 16
+# ring-size floor of ``resolve_horizon(..., canonical=True)``, the
+# reference's: shape-compatible sweeps land on one program signature (one
+# captured tick program, core/compile_cache.py). The ring's size does not
+# change a result: a message lands at (t + delay) % D either way.
+CANONICAL_HORIZON = 256
 
 
 def sim_ticks(cfg: SMRConfig) -> int:
@@ -52,14 +58,16 @@ def _backlog_bound_ticks(cfg: SMRConfig, min_nic_scale: float) -> float:
         bytes_per_tick * float(min_nic_scale))
 
 
-def resolve_horizon(cfg: SMRConfig, scenarios_=(), tabs=None) -> SMRConfig:
+def resolve_horizon(cfg: SMRConfig, scenarios_=(), tabs=None,
+                    canonical: bool = False) -> SMRConfig:
     """Resolve ``delay_horizon_ticks="auto"`` to the exact bound for a
     sweep: max static link delay + the largest scenario ``extra_delay`` +
     the NIC-backlog bound under the worst scenario throttle, next power of
     two, capped at one sim length (a ring spanning the run clips only
     deliveries after its end). Call it with EVERY scenario of a sweep so
     all grid points share one ring shape; pass ``tabs`` (their lowered,
-    unpadded tables) to avoid re-lowering. No-op on int horizons."""
+    unpadded tables) to avoid re-lowering. No-op on int horizons. With
+    ``canonical`` the size is floored at ``CANONICAL_HORIZON``."""
     if isinstance(cfg.delay_horizon_ticks, int):
         return cfg
     if cfg.delay_horizon_ticks != "auto":
@@ -78,6 +86,8 @@ def resolve_horizon(cfg: SMRConfig, scenarios_=(), tabs=None) -> SMRConfig:
              + _backlog_bound_ticks(cfg, min_scale) + _HORIZON_MARGIN_TICKS)
     bound = min(float(bound), float(sim_ticks(cfg) + 1))
     horizon = max(64, 1 << max(0, int(np.ceil(bound)) - 1).bit_length())
+    if canonical:
+        horizon = max(horizon, CANONICAL_HORIZON)
     return dataclasses.replace(cfg, delay_horizon_ticks=int(horizon))
 
 
@@ -128,9 +138,11 @@ def stack_envs(envs: Sequence[Dict[str, torch.Tensor]]
     return {k: torch.stack([e[k] for e in envs]) for k in envs[0]}
 
 
-def _win(env, t: int) -> torch.Tensor:
+def _win(env, t: torch.Tensor) -> torch.Tensor:
     """[B] window row of tick t, per lane."""
-    return env["win_of_tick"][:, t].long()
+    wot = env["win_of_tick"]
+    t = _device.tick_index(t, wot.device)
+    return wot.index_select(1, t.long().view(1))[:, 0].long()
 
 
 def _rows(table: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -140,34 +152,36 @@ def _rows(table: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.gather(table, 1, idx).squeeze(1)
 
 
-def alive(env, t: int) -> torch.Tensor:
+def alive(env, t: torch.Tensor) -> torch.Tensor:
     """[B, n] bool — replica is up in tick t's window."""
     return _rows(env["alive_tab"], _win(env, t))
 
 
-def link_delay(env, t: int) -> torch.Tensor:
+def link_delay(env, t: torch.Tensor) -> torch.Tensor:
     """[B, n, n] delay in ticks including the scenario's extra delay."""
     return env["delays"] + _rows(env["delay_tab"], _win(env, t))
 
 
-def link_drop(env, t: int) -> torch.Tensor:
+def link_drop(env, t: torch.Tensor) -> torch.Tensor:
     """[B, n, n] bool — links the scenario cuts this tick."""
     return _rows(env["drop_tab"], _win(env, t))
 
 
-def nic_rate(env, t: int) -> torch.Tensor:
+def nic_rate(env, t: torch.Tensor) -> torch.Tensor:
     """[B, n] effective egress bytes/tick per sender (throttle-scaled)."""
     return env["bytes_per_tick"][:, None] * _rows(env["nic_tab"],
                                                   _win(env, t))
 
 
-def egress_delay(busy: torch.Tensor, t: int, bytes_out: torch.Tensor):
+def egress_delay(busy: torch.Tensor, t: torch.Tensor,
+                 bytes_out: torch.Tensor):
     """NIC serialization. busy: [B, n] abs tick when the NIC frees;
     bytes_out: [B, n, n] bytes (already divided by the NIC rate) sent this
     tick, serialized in receiver order. Returns (new_busy [B, n],
     extra_delay_ticks [B, n, n])."""
+    tf = _device.tick_index(t, busy.device).float()
     cum = torch.cumsum(bytes_out, dim=2)
-    start = torch.clamp(busy, min=float(t))[:, :, None]
+    start = torch.maximum(busy, tf)[:, :, None]
     finish = start + cum
     new_busy = start[:, :, 0] + cum[:, :, -1]
-    return new_busy, finish - float(t)
+    return new_busy, finish - tf

@@ -16,8 +16,8 @@ Requests forwarded to a failed leader are lost to the count (client retry
 is not modeled).
 
 Every state tensor carries a leading lane axis ``B``; matrices are
-[B, replica, replica, ...]. The tick takes a Python-int ``t`` and does no
-host sync. With tracing or monitoring on, the state also carries the
+[B, replica, replica, ...]. The tick takes a 0-dim int32 tensor ``t`` (a
+Python int is converted) and does no host sync. With tracing or monitoring on, the state also carries the
 layer's flight recorder (``tr``) and the monitor's IO gauges
 (``mon_io``), written at the end of the tick.
 """
@@ -113,19 +113,20 @@ def _sum_senders(x: torch.Tensor) -> torch.Tensor:
     return acc
 
 
-def tick(st: Dict, t: int, arr: Optional[workload.Arrivals], env: Dict,
-         cfg: SMRConfig, mandator_mode: bool,
+def tick(st: Dict, t: torch.Tensor, arr: Optional[workload.Arrivals],
+         env: Dict, cfg: SMRConfig, mandator_mode: bool,
          lcr: Optional[torch.Tensor] = None) -> Dict:
     """One simulator tick of every lane. arr: the arrivals the clients
     read (``workload.Arrivals``), plain mode only; lcr: Mandator's
     getClientRequests() [B, n, n], mandator mode only."""
     n = cfg.n_replicas
     maj = n // 2 + 1
+    t = _device.tick_index(t, env["delays"].device)
     alive = netsim.alive(env, t)
     delays = netsim.link_delay(env, t).to(I32)
     drop = netsim.link_drop(env, t)
     to_ticks = float(cfg.view_timeout_ms / cfg.tick_ms)
-    tf = float(t)
+    tf = t.float()
     st = dict(st)
     dev = alive.device
     rows = torch.arange(n, device=dev, dtype=I32)

@@ -15,7 +15,8 @@ Every state tensor carries a leading lane axis ``B``; matrices are
 [B, receiver, sender, ...]. Integer ``//`` and ``%`` are floor division and
 Python-style remainder, as in jnp; ``torch.argmax`` takes the first
 maximum, as ``jnp.argmax`` does; float-to-int casts truncate. The tick
-takes a Python-int ``t`` and does no host sync. With tracing or
+takes a 0-dim int32 tensor ``t`` (a Python int is converted) and
+does no host sync. With tracing or
 monitoring on, the state also carries the layer's flight recorder
 (``tr``) and the monitor's IO gauges (``mon_io``), written at the end of
 the tick.
@@ -130,19 +131,20 @@ def _at(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.gather(x, 2, ix).squeeze(2)
 
 
-def tick(st: Dict, t: int, env: Dict, cfg: SMRConfig,
+def tick(st: Dict, t: torch.Tensor, env: Dict, cfg: SMRConfig,
          lcr: torch.Tensor) -> Dict:
     """One simulator tick of every lane. lcr: Mandator getClientRequests()
     per replica [B, n, n] (row i = replica i's vector clock)."""
     n = cfg.n_replicas
     f = (n - 1) // 2
     q = n - f
+    t = _device.tick_index(t, env["delays"].device)
     alive = netsim.alive(env, t)
     delays = netsim.link_delay(env, t).to(I32)
     drop = netsim.link_drop(env, t)
     to_ticks = float(cfg.view_timeout_ms / cfg.tick_ms)
     st = dict(st)
-    tf = float(t)
+    tf = t.float()
     dev = lcr.device
     rows = torch.arange(n, device=dev, dtype=I32)
     lcr_f = lcr.float()

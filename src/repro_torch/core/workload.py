@@ -49,6 +49,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch import device as _device
 from repro_torch.configs.smr import SMRConfig
 from repro_torch.workloads.compile import TRIVIAL_MODE, WorkloadMode
 
@@ -162,17 +163,26 @@ def epoch_count(rate: float, wlt: Dict, b: int) -> int:
                          + EPOCH_FLOOR))
 
 
+def epoch_slots(count: int) -> int:
+    """The epoch stream's width M for a largest lane count ``count``: the
+    next power of two, at least EPOCH_FLOOR, so that grids whose counts
+    differ a little share one shape (and one captured tick program). The
+    +inf padding takes no arrival."""
+    return max(EPOCH_FLOOR, 1 << (max(1, int(count)) - 1).bit_length())
+
+
 def epoch_stream(rate_per_tick: Sequence[float], seeds: Sequence[int],
                  wlt: Dict, n_ticks: int, n: int,
                  device: torch.device) -> torch.Tensor:
     """[B, n, M] float64 arrival epochs of each closed lane's unit-rate
     Poisson processes, one per origin (cumulated Exp(1) gaps from the
     lane's own generator seeded with its seed); open lanes' rows, and
-    closed lanes' rows past their own ``epoch_count``, are +inf."""
+    closed lanes' rows past their own ``epoch_count``, are +inf. M is
+    ``epoch_slots`` of the largest count."""
     counts = [epoch_count(lam, wlt, b)
               if float(wlt["closed"][b]) > 0 else 0
               for b, lam in enumerate(rate_per_tick)]
-    m = max(max(counts), 1)
+    m = epoch_slots(max(counts))
     # lint: allow(dtype-hygiene): the closed lanes' epoch stream
     # is float64 (a time-changed unit-rate Poisson process)
     out = torch.full((len(counts), n, m), float("inf"), dtype=torch.float64,
@@ -192,21 +202,32 @@ def epoch_stream(rate_per_tick: Sequence[float], seeds: Sequence[int],
 
 def check_epochs(wl: Dict, arr: Arrivals) -> None:
     """After the run: raise if a closed lane's intensity passed the last
-    epoch drawn for it (its counts would have been cut short)."""
+    epoch drawn for it, its last finite one (its counts would have been
+    cut short). Rows of +inf alone (open lanes) hold no epoch."""
     if not arr.sampling:
         return
-    last = arr.epochs[..., -1]
-    if bool((wl["cl_lam_cum"] >= last).any()):
+    finite = torch.isfinite(arr.epochs)
+    last = torch.where(finite, arr.epochs, float("-inf")).amax(dim=-1)
+    if bool(((wl["cl_lam_cum"] >= last) & finite.any(dim=-1)).any()):
         raise RuntimeError("a closed-loop lane ran past its epoch stream; "
                            "raise workload.EPOCH_SIGMAS")
 
 
-def arrive(wl: Dict, arr: Arrivals, t: int, alive: torch.Tensor) -> Dict:
+def _at_tick(table: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """Column ``t`` of a per-lane table [B, T, ...] -> [B, ...], indexed on
+    the device."""
+    return table.index_select(1, t.long().view(1))[:, 0]
+
+
+def arrive(wl: Dict, arr: Arrivals, t: torch.Tensor,
+           alive: torch.Tensor) -> Dict:
     """This tick's Poisson arrivals at each origin's clients; a down
-    replica takes no requests."""
+    replica takes no requests. ``t``: the tick, a 0-dim int32 tensor (a
+    Python int is converted)."""
     wl = dict(wl)
+    t = _device.tick_index(t, alive.device)
     if not arr.mode.closed:
-        cnt = arr.draws[:, t] * alive
+        cnt = _at_tick(arr.draws, t) * alive
     else:
         wlt = arr.wlt
         closed = (wlt["closed"] > 0)[:, None]
@@ -215,7 +236,8 @@ def arrive(wl: Dict, arr: Arrivals, t: int, alive: torch.Tensor) -> Dict:
             # pool size via Little's law at the sweep rate; submission is
             # gated on requests still in flight
             lanes = torch.arange(closed.shape[0], device=closed.device)
-            mult = wlt["rate_of"][lanes, wlt["win_of_tick"][:, t].long()]
+            mult = wlt["rate_of"][lanes,
+                                  _at_tick(wlt["win_of_tick"], t).long()]
             rate = arr.rate[:, None]
             think = wlt["think_ticks"][:, None]
             clients = rate * think * mult
@@ -230,10 +252,11 @@ def arrive(wl: Dict, arr: Arrivals, t: int, alive: torch.Tensor) -> Dict:
                                       right=True)[..., 0]
             drawn = (seen - wl["cl_drawn"]).float()
             wl["cl_lam_cum"], wl["cl_drawn"] = lam_cum, seen
-            open_cnt = arr.draws[:, t] if arr.draws is not None else 0.0
+            open_cnt = _at_tick(arr.draws, t) if arr.draws is not None \
+                else 0.0
             cnt = torch.where(closed, drawn, open_cnt) * alive
         else:
-            cnt = arr.draws[:, t] * alive
+            cnt = _at_tick(arr.draws, t) * alive
         # capped at `cap` outstanding per origin
         room = torch.clamp(wlt["cap"][:, None] - inflight, min=0.0)
         capped = torch.where(closed, torch.minimum(cnt, room), cnt)
@@ -242,6 +265,7 @@ def arrive(wl: Dict, arr: Arrivals, t: int, alive: torch.Tensor) -> Dict:
         cnt = capped
         wl["cl_submitted"] = wl["cl_submitted"] + cnt
     wl["buffer"] = wl["buffer"] + cnt
+    # a float32 product with float32(t), as the reference's cnt * t
     wl["buffer_tsum"] = wl["buffer_tsum"] + cnt * t
     return wl
 
@@ -254,15 +278,18 @@ def refill_cpu(wl: Dict, cpu_req_per_tick: torch.Tensor) -> Dict:
     return wl
 
 
-def form_batches(wl: Dict, t: int, can_form: torch.Tensor,
+def form_batches(wl: Dict, t: torch.Tensor, can_form: torch.Tensor,
                  round_idx: torch.Tensor, batch_size: int,
                  batch_ticks: float
                  ) -> Tuple[Dict, torch.Tensor, torch.Tensor]:
     """can_form: [B, n] bool (protocol gate, e.g. ~awaitingAcks & alive).
     round_idx: [B, n] int32 — the chain round the new batch would get.
     Returns (wl, formed [B, n] bool, count [B, n] float). The batch
-    records are updated in place."""
+    records are updated in place. ``t``: the tick, a 0-dim int32 tensor
+    (a Python int is converted)."""
     wl = dict(wl)
+    t = _device.tick_index(t, can_form.device)
+    tf = t.float()
     inf = float("inf")
     size_ok = wl["buffer"] >= batch_size
     time_ok = (t - wl["last_batch_t"] >= batch_ticks) & (wl["buffer"] > 0)
@@ -278,7 +305,7 @@ def form_batches(wl: Dict, t: int, can_form: torch.Tensor,
     idx = torch.clamp(round_idx, 0, wl["batch_create_t"].shape[2] - 1
                       ).long()[..., None]
     wl["batch_create_t"].scatter_reduce_(
-        2, idx, torch.where(formed, float(t), inf)[..., None], "amin",
+        2, idx, torch.where(formed, tf, inf)[..., None], "amin",
         include_self=True)
     wl["batch_arr_mean"].scatter_add_(
         2, idx, torch.where(formed, arr_mean, 0.0)[..., None])
@@ -299,5 +326,5 @@ def form_batches(wl: Dict, t: int, can_form: torch.Tensor,
     # lint: allow(dtype-hygiene): the fused multiply-add's one rounding
     wl["buffer_tsum"] = (tsum - tsum * frac.double()).float()
     wl["cpu_tokens"] = wl["cpu_tokens"] - count
-    wl["last_batch_t"] = torch.where(formed, float(t), wl["last_batch_t"])
+    wl["last_batch_t"] = torch.where(formed, tf, wl["last_batch_t"])
     return wl, formed, count

@@ -14,7 +14,9 @@
 // payload [B, n, n, w] float32, delay [B, n, n] int32 and mask [B, n, n]
 // bool through their element strides (0 on a broadcast dim), with the
 // static layout (off, w, flag_off, additive) of its channel; drop [B, n, n]
-// bool (or none) is the tick's cut links:
+// bool (or none) is the tick's cut links. The tick t (>= 0) is read from
+// device memory, so that a launch captured into a CUDA graph commits the
+// tick the graph's counter holds at each replay:
 //   1. slot t % D of every lane is reset to the per-field fill vector;
 //   2. for each send e, in order, with live = mask & ~drop:
 //        slot  = (t + clamp(delay, 1, D - 1)) % D,
@@ -90,7 +92,8 @@ static_assert(sizeof(Params) == 1320, "Params layout");
 template <int E>
 __global__ void __launch_bounds__(kThreads)
 commit_kernel(float* __restrict__ buf, const float* __restrict__ fill,
-              const __grid_constant__ Params p, int t_slot) {
+              const __grid_constant__ Params p,
+              const int* __restrict__ t_ptr) {
   const int n = p.n, K = p.K, D = p.D;
   const int nn = n * n;
   const int tid = blockIdx.x * blockDim.x + threadIdx.x;
@@ -103,7 +106,8 @@ commit_kernel(float* __restrict__ buf, const float* __restrict__ fill,
   const int slot_stride = nn * K;           // one slot of one lane
   float* col = buf + ((long long)b * D * nn + ij) * K + k;
 
-  // (a) every independent load first
+  // (a) every independent load first; every thread reads the one t
+  const int t_slot = *t_ptr % D;
   const bool dropped =
       p.drop != nullptr &&
       p.drop[b * p.drs[0] + i * p.drs[1] + j * p.drs[2]] != 0;
@@ -181,25 +185,25 @@ commit_kernel(float* __restrict__ buf, const float* __restrict__ fill,
 }
 
 template <int E>
-void launch(float* buf, const float* fill, const Params& p, int t_slot,
+void launch(float* buf, const float* fill, const Params& p, const int* t,
             unsigned blocks, cudaStream_t stream) {
-  commit_kernel<E><<<blocks, kThreads, 0, stream>>>(buf, fill, p, t_slot);
+  commit_kernel<E><<<blocks, kThreads, 0, stream>>>(buf, fill, p, t);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launches the commit of tick t (>= 0) into buf on `stream` (a
-// cudaStream_t) of device `device` with the sends described by *params
-// (copied into the launch's parameters) and returns cudaGetLastError() as
-// an int (0 = launched).
+// Launches the commit of the tick *t (a device int32 >= 0, read by the
+// kernel) into buf on `stream` (a cudaStream_t) of device `device` with the
+// sends described by *params (copied into the launch's parameters) and
+// returns cudaGetLastError() as an int (0 = launched).
 int channel_ring_commit(void* buf, const void* fill, const void* params,
-                        int t, int device, void* stream) {
+                        const int* t, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const Params& p = *(const Params*)params;
-  if (p.E < 0 || p.E > kMaxEntries || p.D < 1 || t < 0) {
+  if (p.E < 0 || p.E > kMaxEntries || p.D < 1 || t == nullptr) {
     return (int)cudaErrorInvalidValue;
   }
   const long long total = (long long)p.B * p.n * p.n * p.K;
@@ -209,11 +213,10 @@ int channel_ring_commit(void* buf, const void* fill, const void* params,
   float* b = (float*)buf;
   const float* f = (const float*)fill;
   const cudaStream_t s = (cudaStream_t)stream;
-  const int ts = t % p.D;
   switch (p.E) {
 #define COMMIT_CASE(N) \
   case N:              \
-    launch<N>(b, f, p, ts, blocks, s); \
+    launch<N>(b, f, p, t, blocks, s); \
     break;
     COMMIT_CASE(0) COMMIT_CASE(1) COMMIT_CASE(2) COMMIT_CASE(3)
     COMMIT_CASE(4) COMMIT_CASE(5) COMMIT_CASE(6) COMMIT_CASE(7)

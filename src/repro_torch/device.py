@@ -1,4 +1,4 @@
-"""Device selection for the port's entry points.
+"""Device selection for the port's entry points, and the tick index.
 
 Every entry point takes ``device=None``, which means CUDA. Without a CUDA
 device that raises: the port never falls back to the CPU on its own. The
@@ -21,4 +21,20 @@ def resolve(device=None) -> torch.device:
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {device!r} requested but torch sees no "
                            "CUDA device")
+    if dev.type == "cuda" and dev.index is not None \
+            and dev.index >= torch.cuda.device_count():
+        raise RuntimeError(f"device {device!r} requested but torch sees "
+                           f"{torch.cuda.device_count()} CUDA device(s)")
     return dev
+
+
+def tick_index(t: int | torch.Tensor, device) -> torch.Tensor:
+    """The tick index as the tick loop carries it: a 0-dim int32 tensor on
+    the run's device, which no op of a tick reads back. A tensor passes
+    through unchanged; a Python int (a caller stepping ticks by hand) is
+    checked and converted once."""
+    if isinstance(t, torch.Tensor):
+        return t
+    if int(t) < 0:
+        raise ValueError(f"tick must be >= 0, got {t}")
+    return torch.tensor(int(t), dtype=torch.int32, device=device)

@@ -21,6 +21,9 @@ from dataclasses import dataclass
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
+# the build cache's accounting (core/compile_cache.stats): libraries
+# loaded as built (hits) and libraries nvcc compiled (misses)
+STATS = {"hits": 0, "misses": 0}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -68,7 +71,9 @@ def _start(name: str):
     Returns (source, library, process or None, temporary output, start)."""
     source, out = _target(name)
     if out.exists():
+        STATS["hits"] += 1
         return source, out, None, None, 0.0
+    STATS["misses"] += 1
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.parent / f".{out.stem}.{os.getpid()}.so"
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)]

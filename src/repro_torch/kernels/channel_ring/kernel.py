@@ -15,7 +15,11 @@ for the design and its bound.
 
 The host side costs little per tick: the struct is built and checked once
 per (layout, shapes, strides, dtypes) and later calls refill only its
-pointers (``describe``). Nothing synchronizes with the host.
+pointers (``describe``). Nothing synchronizes with the host. The tick
+``t`` is a 0-dim int32 tensor on the ring's device, which the kernel
+reads and from which it takes the delivered slot ``t % D``: a launch
+captured into a CUDA graph (core/compile_cache.py) then commits whatever
+tick the graph's ``t`` holds at each replay.
 
 The library is built at first use (kernels/_build.py). ``launch_count``
 counts the launches this wrapper made; nothing else changes it.
@@ -27,6 +31,7 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch import device as _device
 from repro_torch.kernels import _build
 from repro_torch.kernels.channel_ring.ref import EntryLayout
 
@@ -62,7 +67,7 @@ def build() -> _build.Built:
         built = _build.build(NAME)
         lib = built.lib
         fn = lib.channel_ring_commit
-        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int]
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         for name in ("channel_ring_params_size", "channel_ring_max_entries"):
@@ -167,6 +172,11 @@ def describe(buf: torch.Tensor, sends: Sequence, drop: Optional[torch.Tensor],
     more than MAX_ENTRIES sends, an additive channel sent twice, and a
     payload, delay or mask of a dtype, shape or device the tick does not
     send (float32, int32, bool on buf's device)."""
+    # The struct is copied into the launch's parameters, so a launch
+    # captured into a CUDA graph keeps the pointers it had at the capture.
+    # That is right only because the tick's sends (and drop and t) then
+    # live in the graph's own memory pool, where every replay writes them
+    # again at the same addresses (core/compile_cache.py).
     key = _key(buf, sends, drop, layout)
     p = _params.get(key)
     if p is None:
@@ -182,22 +192,28 @@ def describe(buf: torch.Tensor, sends: Sequence, drop: Optional[torch.Tensor],
     return p
 
 
-def ring_commit_fused(buf: torch.Tensor, t: int, fill: torch.Tensor,
-                      sends: Sequence, drop: Optional[torch.Tensor],
+def ring_commit_fused(buf: torch.Tensor, t: torch.Tensor,
+                      fill: torch.Tensor, sends: Sequence,
+                      drop: Optional[torch.Tensor],
                       layout: Tuple[EntryLayout, ...]) -> torch.Tensor:
     """Commit tick ``t`` of these sends into ``buf`` [B, D, n, n, K]
     float32 in place, on the current stream, and return it: clear slot
     ``t % D`` to ``fill`` [K] and merge every send (see ``describe`` for
-    what the sends may be). Equal bitwise to ``commit_entries`` +
+    what the sends may be). ``t`` is a 0-dim int32 tensor on buf's device
+    that the kernel reads (a Python int is checked and converted); it
+    must be >= 0, which the tick loop's bounds guarantee (a tensor is not
+    read back to check it). Equal bitwise to ``commit_entries`` +
     ``ops.pack_entries`` + ``ring_commit_ref``."""
     global launch_count
     if not buf.is_cuda:
         raise ValueError(f"the CUDA channel-ring kernel needs CUDA tensors, "
                          f"got buf on {buf.device}")
-    if t < 0:
-        raise ValueError(f"tick must be >= 0, got {t}")
+    t = _device.tick_index(t, buf.device)
     p = describe(buf, sends, drop, layout)
     dev = buf.device
+    if t.device != dev or t.dtype != torch.int32 or t.numel() != 1:
+        raise ValueError(f"t must be one int32 on {dev}, got "
+                         f"{t.dtype} {tuple(t.shape)} on {t.device}")
     if (fill.device != dev or fill.dtype != torch.float32
             or tuple(fill.shape) != (buf.shape[4],)
             or not fill.is_contiguous()):
@@ -205,7 +221,7 @@ def ring_commit_fused(buf: torch.Tensor, t: int, fill: torch.Tensor,
                          f" on {dev}")
     lib = build().lib
     err = lib.channel_ring_commit(
-        buf.data_ptr(), fill.data_ptr(), ctypes.addressof(p), int(t),
+        buf.data_ptr(), fill.data_ptr(), ctypes.addressof(p), t.data_ptr(),
         dev.index if dev.index is not None else torch.cuda.current_device(),
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:

@@ -46,12 +46,13 @@ def pack_entries(entries: Sequence[Entry]
     return slots.contiguous(), vals, flags.contiguous()
 
 
-def ring_commit(buf: torch.Tensor, t: int, fill: torch.Tensor,
+def ring_commit(buf: torch.Tensor, t: torch.Tensor, fill: torch.Tensor,
                 entries: Sequence[Entry],
                 layout: Sequence[EntryLayout]) -> torch.Tensor:
     """The plain version of one tick's commit into ``buf`` [B, D, n, n, K],
     in place: slot-clear of the delivered slot ``t % D`` + one scatter-max
-    + one scatter-add (see ref.py). Returns ``buf``."""
+    + one scatter-add (see ref.py). ``t``: the tick, a 0-dim int32 tensor
+    (a Python int is converted). Returns ``buf``."""
     slots, vals, flags = pack_entries(entries)
     return ring_commit_ref(buf, t, fill, slots, vals, flags,
                            as_layout(layout))

@@ -6,7 +6,8 @@ field axis, each channel's flag field right after its payload — see
 core/channel.RingSpec), as the reference's ``ring_commit_ref`` does it:
 
   1. slot-clear: slot ``t % D`` (the slot the tick just delivered) is reset
-     to the per-field fill vector;
+     to the per-field fill vector (``t`` is a 0-dim int32 tensor on the
+     ring's device, so the slot is chosen on the device);
   2. ONE scatter-max over every max-merged payload field and every flag
      field of the tick's sends;
   3. ONE scatter-add over the additive payload fields (request counters).
@@ -29,6 +30,8 @@ import functools
 from typing import Sequence, Tuple
 
 import torch
+
+from repro_torch import device as _device
 
 # static per-entry layout: (payload offset, width, flag field, additive)
 EntryLayout = Tuple[int, int, int, bool]
@@ -58,7 +61,9 @@ def _groups(layout: Tuple[EntryLayout, ...]):
     return mx, ad
 
 
-@functools.lru_cache(maxsize=64)
+# unbounded: a captured tick graph reads these index tensors where they
+# lie (core/channel.py)
+@functools.lru_cache(maxsize=None)
 def _plan(layout: Tuple[EntryLayout, ...], shape: Tuple[int, ...],
           device: torch.device):
     """Per (layout, ring shape, device): for the max and the add group, the
@@ -81,15 +86,18 @@ def _plan(layout: Tuple[EntryLayout, ...], shape: Tuple[int, ...],
     return plans
 
 
-def ring_commit_ref(buf: torch.Tensor, t: int, fill: torch.Tensor,
+def ring_commit_ref(buf: torch.Tensor, t: torch.Tensor, fill: torch.Tensor,
                     slots: torch.Tensor, vals: torch.Tensor,
                     flags: torch.Tensor,
                     layout: Sequence[EntryLayout]) -> torch.Tensor:
     """Commit one tick into ``buf`` in place and return it.
-    buf: [B, D, n, n, K] float32 contiguous; fill: [K]."""
+    buf: [B, D, n, n, K] float32 contiguous; fill: [K]; t: the tick, a
+    0-dim int32 tensor (a Python int is converted)."""
     B, D, n, _, K = buf.shape
     mx, ad = _plan(as_layout(layout), tuple(buf.shape), buf.device)
-    buf[:, t % D] = fill                                         # slot-clear
+    t = _device.tick_index(t, buf.device)
+    buf.index_copy_(1, (t % D).long().view(1),                   # slot-clear
+                    fill.view(1, 1, 1, 1, K).expand(B, 1, n, n, K))
     src = torch.cat([vals, flags], dim=-1)
     flat = buf.view(-1)
     stride = n * n * K                                   # one slot of a lane

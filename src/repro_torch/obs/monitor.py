@@ -44,12 +44,14 @@ epaxos/rabia models.
 """
 from __future__ import annotations
 
+import functools
 import os
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
+from repro_torch import device as _device
 from repro_torch.core import netsim
 
 
@@ -93,10 +95,26 @@ def n_buckets(n_ticks: int, tick_ms: float) -> int:
     return max(1, int(np.ceil(n_ticks * tick_ms / BUCKET_MS)))
 
 
-def _bucket(t: int, tick_ms: float, nb: int) -> int:
-    """Bucket of tick t, from the float32 product the reference takes."""
-    b = int(np.float32(t) * np.float32(tick_ms / BUCKET_MS))
-    return min(max(b, 0), nb - 1)
+@functools.lru_cache(maxsize=None)
+def _bucket_table(tick_ms: float, nb: int, device: torch.device
+                  ) -> torch.Tensor:
+    """[L] int64 bucket of each tick t < L, from the float32 product the
+    reference takes, clamped to [0, nb - 1]; L passes the tick where the
+    last bucket starts, so tick t's bucket is ``table[min(t, L - 1)]``.
+    Made once on the host per (tick_ms, nb, device); unbounded, since a
+    captured tick graph reads it where it lies."""
+    length = int(np.ceil(nb * BUCKET_MS / tick_ms)) + 2
+    ticks = np.arange(length, dtype=np.float32)
+    b = (ticks * np.float32(tick_ms / BUCKET_MS)).astype(np.int64)
+    return torch.as_tensor(np.clip(b, 0, nb - 1), device=device)
+
+
+def _bucket(t: torch.Tensor, tick_ms: float, nb: int) -> torch.Tensor:
+    """[1] int64 bucket of tick t (a 0-dim tensor), looked up on the
+    device."""
+    table = _bucket_table(float(tick_ms), int(nb), t.device)
+    return table.index_select(
+        0, torch.clamp(t.long(), max=table.shape[0] - 1).view(1))
 
 
 def stall_grace_ticks(cfg, env) -> torch.Tensor:
@@ -158,17 +176,19 @@ def _any(x: torch.Tensor) -> torch.Tensor:
     return x.flatten(1).any(dim=1)
 
 
-def update(mon: Optional[Dict], t: int, cfg, env, views: Dict,
+def update(mon: Optional[Dict], t: torch.Tensor, cfg, env, views: Dict,
            grace_ticks: torch.Tensor, wlt: Optional[Dict] = None,
            inflight: Optional[torch.Tensor] = None,
            check_cap: bool = False) -> Optional[Dict]:
     """One monitor tick of every lane. ``views`` is the protocol-state
     projection built by ``harness._monitor_views``; ``wlt`` the grid's
     workload tables (leaves [B, ...]); ``inflight`` [B, n]. None monitor
-    state (level off) passes straight through."""
+    state (level off) passes straight through. ``t``: the tick, a 0-dim
+    int32 tensor (a Python int is converted)."""
     if mon is None:
         return None
     mon = dict(mon)
+    t = _device.tick_index(t, mon["occ_tl"].device)
     # ---- resource gauges (all levels > off) -----------------------------
     occ = views["ring_occ"]                                   # [B]
     dropped = views["dropped"]                                # [B, n]
@@ -177,8 +197,10 @@ def update(mon: Optional[Dict], t: int, cfg, env, views: Dict,
     mon["dropped_sends"] = mon["dropped_sends"] + dropped
     b = _bucket(t, cfg.tick_ms, mon["occ_tl"].shape[1])
     occ_tl, drop_tl = mon["occ_tl"].clone(), mon["drop_tl"].clone()
-    occ_tl[:, b] = torch.maximum(occ_tl[:, b], occ)
-    drop_tl[:, b] = drop_tl[:, b] + dropped.sum(dim=1).float()
+    occ_tl.index_copy_(1, b, torch.maximum(occ_tl.index_select(1, b),
+                                           occ[:, None]))
+    drop_tl.index_copy_(1, b, drop_tl.index_select(1, b)
+                        + dropped.sum(dim=1).float()[:, None])
     mon["occ_tl"], mon["drop_tl"] = occ_tl, drop_tl
     mon["starved_max"] = torch.maximum(
         mon["starved_max"], (views["formed"] - views["stable"]).int())

@@ -37,6 +37,8 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch import device as _device
+
 
 class TraceLevel:
     """Trace gate. OFF leaves the recorder out entirely; COUNTERS keeps
@@ -166,9 +168,11 @@ def _kinds(spec: TraceSpec, names: Sequence[str],
 
 
 def _record_events(spec: TraceSpec, ts: Optional[Dict],
-                   events: Sequence[Event], t: int) -> Optional[Dict]:
-    """Record ``events`` in order at tick ``t``: each for every lane and
-    replica where its mask is set. Equals the reference's ``record``
+                   events: Sequence[Event],
+                   t: torch.Tensor) -> Optional[Dict]:
+    """Record ``events`` in order at tick ``t`` (a 0-dim int32 tensor; a
+    Python int is converted): each for every lane and replica where its
+    mask is set. Equals the reference's ``record``
     called once per event; the counters and the ring are updated in
     place. None trace state (level off) passes straight through."""
     if ts is None or not events:
@@ -195,7 +199,7 @@ def _record_events(spec: TraceSpec, ts: Optional[Dict],
     E = len(events)
     rec = torch.stack([
         kinds.to(torch.int32).expand(B, n, E),
-        torch.full_like(inc, int(t)),
+        _device.tick_index(t, inc.device).to(torch.int32).expand_as(inc),
         torch.stack([_i32(a, like) for _, _, a, _ in events], dim=-1),
         torch.stack([_i32(b, like) for _, _, _, b in events], dim=-1)],
         dim=-1)                                                  # [B,n,E,4]
@@ -208,7 +212,8 @@ def _record_events(spec: TraceSpec, ts: Optional[Dict],
 
 
 def record(spec: TraceSpec, ts: Optional[Dict], name: str,
-           mask: torch.Tensor, t: int, a=0, b=0) -> Optional[Dict]:
+           mask: torch.Tensor, t: torch.Tensor, a=0,
+           b=0) -> Optional[Dict]:
     """Record event ``name`` for every lane and replica where ``mask``
     ([B, n] bool) is set, with int payloads ``a``/``b`` (ints or tensors
     broadcasting to [B, n]; floats are truncated). None trace state (level
@@ -217,7 +222,7 @@ def record(spec: TraceSpec, ts: Optional[Dict], name: str,
 
 
 def record_env(spec: TraceSpec, ts: Optional[Dict], alive: torch.Tensor,
-               t: int, a=0, b=0,
+               t: torch.Tensor, a=0, b=0,
                dropped_links: Optional[torch.Tensor] = None,
                events: Sequence[Event] = ()) -> Optional[Dict]:
     """A layer's events of tick ``t`` in one pass: first ``events`` (the

@@ -10,8 +10,11 @@ Runs unreduced, reduced, reduced, unreduced, ... (N pairs, each pair in
 the other order than the last), each the 16-lane Fig-6 grid of the
 protocol (benchmarks/figures.py's rates x seeds 0-3) for S simulated
 seconds, and checks every run's scalars against the first unreduced
-run's, bit for bit. Prints one JSON line per run, the medians, and the
-card's name and power limit. Needs a card.
+run's, bit for bit. Both paths run once first, untimed: the kernels'
+build and each path's tick capture (core/compile_cache.py) fall there, so
+every timed run replays a stored program (each run's line says how many
+it captured). Prints one JSON line per run, the medians, and the card's
+name and power limit. Needs a card.
 """
 from __future__ import annotations
 
@@ -42,24 +45,28 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("reduced_ab: torch sees no CUDA device")
     from repro_torch.configs.smr import SMRConfig
+    from repro_torch.core import compile_cache
     from repro_torch.core.experiment import SweepSpec, run_sweep
 
     cfg = SMRConfig(sim_seconds=args.seconds)
     spec = SweepSpec(rates=RATES[args.protocol], seeds=(0, 1, 2, 3))
     ticks = int(args.seconds * 1000 / cfg.tick_ms)
-    run_sweep(args.protocol, cfg, spec, mesh=1)      # first calls, build
+    run_sweep(args.protocol, cfg, spec, mesh=1)      # first calls: the
+    run_sweep(args.protocol, cfg, spec)              # build, the captures
     order = []
     for i in range(args.pairs):
         order += ["unreduced", "reduced"][::1 if i % 2 == 0 else -1]
     walls = {"unreduced": [], "reduced": []}
     first = None
     for path in order:
+        before = compile_cache.stats()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         rows = run_sweep(args.protocol, cfg, spec,
                          mesh=1 if path == "reduced" else None)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        captures = compile_cache.delta(before)["captures"]
         first = first or rows
         for a, b in zip(first, rows):
             for k in SCALARS:
@@ -67,7 +74,8 @@ def main() -> int:
                     raise AssertionError(f"{path} {k}: {a[k]} != {b[k]}")
         walls[path].append(wall)
         print(json.dumps({"path": path, "wall_s": wall,
-                          "ms_per_tick": wall / ticks * 1e3}), flush=True)
+                          "ms_per_tick": wall / ticks * 1e3,
+                          "captures": captures}), flush=True)
     print(json.dumps({f"median_ms_per_tick_{p}":
                       statistics.median(w) / ticks * 1e3
                       for p, w in walls.items()}))
