@@ -200,7 +200,30 @@ Phases, each printed as it ends; any failure exits non-zero:
               within 10% of the exact one (the reference test's band;
               the p99 gap printed, unbounded); (d) grid_mesh past the
               card count raises;
- 17. the tick programs of the whole script (captures, their seconds,
+ 17. train  — the training path: (a) launch.train.train("smollm-135m",
+              reduced=False, steps=20, batch=8, seq=512) on the card (30
+              layers, d 576, f32, dense attention, AdamW, Sporades
+              commits): walls per step, tokens/s, peak memory, the losses
+              (the last below the first) and every step committed; no
+              hand-written kernel runs (the reference's training runs
+              none); (b) 5 steps of make_train_step on the card and on the
+              CPU from one parameter set and the same batches, reduced
+              smollm-135m and jamba (attention, Mamba, MoE), int8 moments
+              on: losses within 1e-5 relative, parameters within 1e-5;
+              (c) a backward through each kernel route (pallas attention,
+              pallas norm, the ssm_scan kernel) raises;
+ 18. moe    — dbrx-132b at its published widths (d 6144, 48/8 heads,
+              D 128, 16 experts top-4, d_ff 10752, vocab 100352) cut to
+              depth 2, random bf16 weights: (a) the [4, 1024] prefill with
+              the flash (tensor-core) and RMSNorm kernels (2 and 5
+              launches), kernels vs plain logits, and each kernel held
+              against its plain version at these shapes with times,
+              bounds and the library call's; (b) a 32-token
+              greedy_generate at B = 4 (ms a decode step, peak memory);
+              (c) one MoE layer at full width in float32 against the same
+              function in float64 on the card: routing (top-k, dispatch)
+              equal, y within 1e-4 relative;
+ 19. the tick programs of the whole script (captures, their seconds,
               replays, the kernels they launched), the card's line, the
               kernels line, then the result line.
 
@@ -2723,6 +2746,393 @@ def phase_mamba(results: dict) -> None:
         "decode_ms_per_step": ms_step, "decode_max_diff": worst}
 
 
+# ---------------------------------------------------------------------------
+# slice 12: training (phase 17) and MoE at dbrx-132b's widths (phase 18)
+# ---------------------------------------------------------------------------
+
+TRAIN_STEPS, TRAIN_B, TRAIN_S = 20, 8, 512   # phase 17 (a), smollm-135m
+# phase 17 (b): card against CPU, reduced configs, int8 moments on
+TRAIN_PARITY_ARCHS = ("smollm-135m", "jamba-1.5-large-398b")
+TRAIN_PARITY_STEPS = 5
+TRAIN_LOSS_REL = 1e-5
+TRAIN_PARAM_TOL = 1e-5
+# phase 18: dbrx-132b's published widths at this depth (a depth cut)
+MOE_ARCH, MOE_DEPTH = "dbrx-132b", 2
+MOE_B, MOE_S = 4, 1024                       # the prefill's tokens
+MOE_PROMPT, MOE_GEN = 8, 32                  # greedy_generate at B = 4
+MOE_LAYER_B, MOE_LAYER_S = 2, 1024           # one MoE layer, f32 vs f64
+MOE_Y_REL = 1e-4
+
+
+def _max_param_diff(a, b) -> float:
+    return max((pa.detach().cpu().double() - pb.detach().cpu().double())
+               .abs().max().item()
+               for pa, pb in zip(a.parameters(), b.parameters()))
+
+
+def phase_train(results: dict) -> None:
+    """(a) launch.train.train at smollm-135m's full width on the card;
+    (b) make_train_step on the card against the CPU, reduced configs;
+    (c) a backward through each kernel route raises."""
+    import copy
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import DataConfig, global_batch
+    from repro_torch.distributed.steps import make_train_step
+    from repro_torch.launch.train import train
+    from repro_torch.models import CallConfig, init_params, loss_fn, ssm
+    from repro_torch.optim.adamw import AdamWConfig, init_opt_state
+
+    # (a) the trainer at full width: dense attention in float32, no remat,
+    # AdamW(lr 1e-3, 20 warm-up steps), one pod, Sporades commits
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t0 = time.perf_counter()
+    out = train("smollm-135m", reduced=False, steps=TRAIN_STEPS,
+                batch=TRAIN_B, seq=TRAIN_S, verbose=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _counts()
+    peak = torch.cuda.max_memory_allocated()
+    losses, secs, commits = out["losses"], out["step_seconds"], \
+        out["commits"]
+    steady = statistics.median(secs[2:])
+    n_tok = TRAIN_B * TRAIN_S
+    n_params = sum(p.numel() for p in out["params"].parameters())
+    log("train", f"smollm-135m full width ({n_params} params, 30 layers, "
+                 f"d 576), {TRAIN_STEPS} steps of [{TRAIN_B}, {TRAIN_S}] "
+                 f"f32 dense: {wall!r} s in all; step walls {secs!r} s; "
+                 f"median of steps 2-19 {steady!r} s = {n_tok / steady!r} "
+                 f"tokens/s; peak memory {peak} B; losses {losses!r}; "
+                 f"commits {commits}; kernel launches {counts}")
+    # one more step of the trained model, timed and profiled
+    cfg = get_config("smollm-135m")
+    step = make_train_step(cfg, CallConfig(compute_dtype=torch.float32,
+                                           attention_impl="dense",
+                                           remat=False),
+                           AdamWConfig(lr=1e-3, warmup_steps=20))
+    state = [out["params"], out["opt_state"]]
+    batch = global_batch(cfg, ShapeConfig("t", "train", TRAIN_S, TRAIN_B),
+                         DataConfig(), TRAIN_STEPS)
+
+    def one_step():
+        state[0], state[1], m = step(state[0], state[1], batch)
+        return m
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    one_step()
+    torch.cuda.synchronize()
+    step_wall = time.perf_counter() - t0
+    launches, dev_ms, top = _profile_window(one_step, 1)
+    del out, state
+    torch.cuda.empty_cache()
+    prof = {"step_wall_s": step_wall, "launches": launches,
+            "device_ms": dev_ms,
+            "busy_share": dev_ms / (step_wall * 1e3) if dev_ms else None}
+    log("train", f"one more step: {step_wall!r} s untraced; profiled "
+                 f"{launches!r} kernel launches, device busy {dev_ms!r} ms "
+                 f"(busy share {prof['busy_share']!r})")
+    for e in top:
+        log("train", f"  {e.self_device_time_total / 1e3!r} ms x{e.count}"
+                     f"  {e.key[:90]}")
+    if len(losses) != TRAIN_STEPS or not all(math.isfinite(x)
+                                             for x in losses):
+        raise AssertionError(f"train losses {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"train: last loss {losses[-1]} not below the "
+                             f"first {losses[0]}")
+    if commits != [TRAIN_STEPS]:
+        raise AssertionError(f"train: Sporades committed {commits} of "
+                             f"{TRAIN_STEPS} steps")
+    results["train"] = {"wall_s": wall, "step_s": secs,
+                        "median_step_s": steady,
+                        "tokens_per_s": n_tok / steady, "peak_bytes": peak,
+                        "losses": losses, "params": n_params,
+                        "commits": commits, "launches": counts,
+                        "profile": prof}
+
+    # (b) card against CPU: one parameter set, the same batches
+    parity = {}
+    for arch in TRAIN_PARITY_ARCHS:
+        cfg = get_config(arch).reduced()
+        opt = AdamWConfig(lr=1e-3, warmup_steps=20, quantized_state=True)
+        step = make_train_step(cfg, CallConfig(
+            compute_dtype=torch.float32, attention_impl="dense",
+            remat=False), opt)
+        cpu = init_params(cfg, 0, device="cpu")
+        card = copy.deepcopy(cpu).cuda()
+        st_cpu, st_card = init_opt_state(opt, cpu), init_opt_state(opt, card)
+        shape = ShapeConfig("t", "train", 64, 4)
+        rels = []
+        for i in range(TRAIN_PARITY_STEPS):
+            b = global_batch(cfg, shape, DataConfig(), i, device="cpu")
+            cpu, st_cpu, m_cpu = step(cpu, st_cpu, b)
+            card, st_card, m_card = step(card, st_card,
+                                         {k: v.cuda() for k, v in b.items()})
+            lc, lg = m_cpu["loss"].item(), m_card["loss"].item()
+            rels.append(abs(lg - lc) / abs(lc))
+        diff = _max_param_diff(card, cpu)
+        parity[arch] = {"loss_rel": rels, "param_max_abs": diff}
+        log("train", f"(b) {cfg.name}: {TRAIN_PARITY_STEPS} steps card vs "
+                     f"CPU, int8 moments on: loss relative diffs {rels!r}, "
+                     f"params max abs diff {diff!r} (tol "
+                     f"{TRAIN_LOSS_REL}, {TRAIN_PARAM_TOL})")
+        if not max(rels) <= TRAIN_LOSS_REL or not diff <= TRAIN_PARAM_TOL:
+            raise AssertionError(f"train card vs CPU {arch}: {parity[arch]}")
+    results["train"]["card_vs_cpu"] = parity
+
+    # (c) the kernel routes refuse autograd on the card
+    cfg = get_config("smollm-135m").reduced()
+    params = init_params(cfg, 0)
+    tok = torch.zeros((1, 16), dtype=torch.long, device="cuda")
+    jcfg = get_config("jamba-1.5-large-398b").reduced()
+    mixer = init_params(jcfg, 0).layers[0].mixer
+    refused = []
+    for route, fn in (
+            ("pallas attention", lambda: loss_fn(params, cfg, CallConfig(
+                compute_dtype=torch.float32, attention_impl="pallas",
+                remat=False), {"tokens": tok, "labels": tok})),
+            ("pallas norm", lambda: loss_fn(params, cfg, CallConfig(
+                compute_dtype=torch.float32, use_pallas_norm=True,
+                remat=False), {"tokens": tok, "labels": tok})),
+            ("ssm_scan", lambda: ssm.mamba_forward(
+                mixer, torch.randn((1, 16, jcfg.d_model), device="cuda"),
+                cfg=jcfg, use_kernel=True))):
+        try:
+            fn()
+        except NotImplementedError as e:
+            refused.append(route)
+            log("train", f"(c) backward through {route} refused: "
+                         f"{str(e)[:60]}...")
+        else:
+            raise AssertionError(f"a backward through {route} did not raise")
+    results["train"]["refused"] = refused
+
+
+def phase_moe(results: dict) -> None:
+    """dbrx-132b at its published widths, depth MOE_DEPTH, bf16: (a) the
+    prefill with the flash and RMSNorm kernels (each held against its plain
+    version at these shapes); (b) greedy_generate; (c) one MoE layer in
+    float32 against the same function in float64."""
+    import dataclasses
+
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention import ref as fref
+    from repro_torch.kernels.rmsnorm import kernel as rk
+    from repro_torch.kernels.rmsnorm import ref as rref
+    from repro_torch.launch.serve import greedy_generate
+    from repro_torch.models import (CallConfig, forward_train, init_cache,
+                                    init_params, moe, param_count_actual)
+    from repro_torch.models.layers import Weights
+
+    full = get_config(MOE_ARCH)
+    cfg = dataclasses.replace(full, n_layers=MOE_DEPTH)
+    bf16 = torch.bfloat16
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, 0, dtype=bf16)
+    n_params = param_count_actual(params)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+    tokens = torch.randint(0, cfg.vocab, (MOE_B, MOE_S), generator=gen,
+                           device="cuda")
+    call = CallConfig(compute_dtype=bf16, attention_impl="pallas",
+                      use_pallas_norm=True, remat=False)
+    plain = dataclasses.replace(call, kernel_backend="ref")
+    batch = {"tokens": tokens}
+    out = {"params": n_params, "depth": MOE_DEPTH}
+
+    # (a) the prefill; each MoE layer's top-k kept, to count the tokens
+    # the kernels' path routes otherwise than the plain path (bf16 router
+    # logits tie often: a last-bit difference upstream moves a token)
+    topis: list = []
+    route = moe.route
+
+    def recorded(*a, **kw):
+        r = route(*a, **kw)
+        topis.append(r["topi"].sort(dim=-1).values)
+        return r
+
+    with torch.no_grad():
+        forward_train(params, cfg, call, batch)              # first calls
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        logits, aux = forward_train(params, cfg, call, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _counts()
+        routes = dict(fk.route_counts)
+        t0 = time.perf_counter()
+        logits_plain, _ = forward_train(params, cfg, plain, batch)
+        torch.cuda.synchronize()
+        wall_plain = time.perf_counter() - t0
+        launches, dev_ms, top = _profile_window(
+            lambda: forward_train(params, cfg, call, batch), 1)
+        moe.route = recorded
+        try:
+            forward_train(params, cfg, call, batch)
+            forward_train(params, cfg, plain, batch)
+        finally:
+            moe.route = route
+    flips = [int((a != b).any(-1).sum())
+             for a, b in zip(topis[:MOE_DEPTH], topis[MOE_DEPTH:])]
+    err = (logits - logits_plain).abs().amax(dim=-1)
+    diff, scale = err.max().item(), logits_plain.abs().max().item()
+    far = int((err > 0.1).sum())
+    del logits_plain, err
+    n_tok = MOE_B * MOE_S
+    log("moe", f"{MOE_ARCH} published widths at depth {MOE_DEPTH} "
+               f"({n_params} params, bf16), prefill [{MOE_B}, {MOE_S}]: "
+               f"kernels {wall!r} s = {n_tok / wall!r} tokens/s; plain "
+               f"versions {wall_plain!r} s; logits kernels vs plain max abs "
+               f"{diff!r} (max |logit| {scale!r}), {far} of {n_tok} "
+               f"positions off by more than 0.1; tokens routed otherwise "
+               f"by the two paths, by layer: {flips}; aux {aux.item()!r}; "
+               f"launches {counts}, flash by kernel {routes}; one forward "
+               f"profiled: {launches!r} kernel launches, device busy "
+               f"{dev_ms!r} ms")
+    for e in top:
+        log("moe", f"  {e.self_device_time_total / 1e3!r} ms x{e.count}  "
+                   f"{e.key[:90]}")
+    if not torch.isfinite(logits).all() or \
+            tuple(logits.shape) != (MOE_B, MOE_S, cfg.vocab):
+        raise AssertionError(f"dbrx prefill logits {tuple(logits.shape)}")
+    want_rms = 2 * MOE_DEPTH + 1
+    if counts["flash_attention"] != MOE_DEPTH \
+            or counts["rmsnorm"] != want_rms or routes["tc"] != MOE_DEPTH:
+        raise AssertionError(f"expected {MOE_DEPTH} flash (tensor-core) and "
+                             f"{want_rms} rmsnorm launches, got {counts} "
+                             f"{routes}")
+    del logits
+    out["prefill"] = {"wall_s": wall, "tokens_per_s": n_tok / wall,
+                      "plain_wall_s": wall_plain, "logits_diff": diff,
+                      "logits_scale": scale, "positions_off": far,
+                      "routing_flips": flips, "launches": counts,
+                      "flash_routes": routes, "profile_launches": launches,
+                      "device_ms": dev_ms}
+
+    # the kernels at the prefill's shapes against their plain versions
+    h, kh, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    err, order_err, excess, (q, k, v) = check_flash(MOE_B, MOE_S, h, kh, d,
+                                                    True, "bfloat16")
+    if not err <= FLASH_TOL["bfloat16"] or not excess <= 1:
+        raise AssertionError(f"flash at dbrx's shapes: {err}, {excess}")
+    bound_ms, bound_by, flops, nbytes = flash_bound(MOE_B, MOE_S, h, kh, d,
+                                                    True, "bfloat16")
+    fl = {"shape": [MOE_B, MOE_S, h, kh, d], "dtype": "bfloat16",
+          "max_abs_err": err, "order_err": order_err,
+          "order_excess": excess, "bound_ms": bound_ms,
+          "bound_by": bound_by,
+          "ms": device_ms(cycling(lambda q, k, v: fk.flash_attention_cuda(
+              q, k, v, causal=True), (q, k, v), nbytes), reps=10, rounds=5),
+          "plain_ms": device_ms(cycling(lambda q, k, v: fref.attention_ref(
+              q, k, v, causal=True), (q, k, v), nbytes), reps=3, rounds=3),
+          "library_ms": device_ms(cycling(
+              lambda q, k, v: F.scaled_dot_product_attention(
+                  q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                  is_causal=True, enable_gqa=True), (q, k, v), nbytes),
+              reps=10, rounds=5)}
+    del q, k, v
+    n_rows = MOE_B * MOE_S
+    err, (x, w, r) = check_rmsnorm(n_rows, cfg.d_model, "bfloat16", False,
+                                   "bfloat16")
+    if not err <= RMS_TOL["bfloat16"]:
+        raise AssertionError(f"rmsnorm at dbrx's shapes: {err}")
+    nbytes = 2 * n_rows * cfg.d_model * 2 + cfg.d_model * 2
+    rms = {"shape": [n_rows, cfg.d_model], "dtype": "bfloat16",
+           "max_abs_err": err, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+           "bound_by": "bytes",
+           "ms": device_ms(cycling(lambda x, w, _: rk.rmsnorm_cuda(x, w),
+                                   (x, w, r), nbytes)),
+           "plain_ms": device_ms(cycling(lambda x, w, _: rref.rmsnorm_ref(
+               x, w), (x, w, r), nbytes)),
+           "library_ms": device_ms(cycling(lambda x, w, _: F.rms_norm(
+               x, (x.shape[-1],), w, 1e-5), (x, w, r), nbytes))}
+    del x, w, r
+    out["flash"], out["rmsnorm"] = fl, rms
+    for name, c in (("flash", fl), ("rmsnorm", rms)):
+        log("moe", f"{name} at dbrx's prefill shape {c['shape']} bf16: max "
+                   f"abs err {c['max_abs_err']!r}, kernel {c['ms']!r} ms, "
+                   f"plain {c['plain_ms']!r} ms, library "
+                   f"{c['library_ms']!r} ms, bound {c['bound_ms']!r} ms by "
+                   f"{c['bound_by']}")
+
+    # (b) serving: the prompt fed token by token, then greedy decoding
+    cache = init_cache(cfg, MOE_B, MOE_PROMPT + MOE_GEN, bf16)
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        toks, _ = greedy_generate(params, cfg, call,
+                                  {"tokens": tokens[:, :MOE_PROMPT]}, cache,
+                                  MOE_PROMPT, MOE_GEN)
+        toks = toks.cpu()
+        gen_wall = time.perf_counter() - t0
+        gen_counts = _counts()
+    n_steps = MOE_PROMPT + MOE_GEN - 1
+    peak = torch.cuda.max_memory_allocated()
+    log("moe", f"greedy_generate B={MOE_B} prompt {MOE_PROMPT} gen "
+               f"{MOE_GEN}: {gen_wall!r} s, {gen_wall / n_steps * 1e3!r} "
+               f"ms per decode step ({n_steps} steps), tokens "
+               f"{tuple(toks.shape)}, first {toks[0, :8].tolist()}; "
+               f"launches {gen_counts}; peak memory {peak} B")
+    if tuple(toks.shape) != (MOE_B, MOE_GEN) or \
+            not ((toks >= 0) & (toks < cfg.vocab)).all():
+        raise AssertionError(f"dbrx greedy_generate returned {toks.shape}")
+    out["decode"] = {"wall_s": gen_wall, "steps": n_steps,
+                     "ms_per_step": gen_wall / n_steps * 1e3,
+                     "launches": gen_counts}
+    out["peak_bytes"] = peak
+    del params, cache
+    torch.cuda.empty_cache()
+
+    # (c) one MoE layer at full width, float32 against float64
+    gen.manual_seed(3)
+    p32 = moe.init_moe(cfg, gen, torch.float32, "cuda")
+    # the float64 yardstick of the float32 layer
+    p64 = Weights(**{n: t.detach().double() for n, t in
+                     p32.named_parameters()})
+    x = torch.randn((MOE_LAYER_B, MOE_LAYER_S, cfg.d_model), generator=gen,
+                    device="cuda")
+    with torch.no_grad():
+        r32 = moe.route(p32, x, cfg=cfg)
+        r64 = moe.route(p64, x.double(), cfg=cfg)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y32, aux32 = moe.moe_mlp(p32, x, cfg=cfg)
+        torch.cuda.synchronize()
+        layer_wall = time.perf_counter() - t0
+        y64, aux64 = moe.moe_mlp(p64, x.double(), cfg=cfg)
+    flips = int((r32["topi"] != r64["topi"]).any(-1).sum())
+    disp_same = bool(torch.equal(r32["disp"].double(), r64["disp"]))
+    y_rel = ((y32.double() - y64).abs().max() / y64.abs().max()).item()
+    log("moe", f"one MoE layer at full width (d {cfg.d_model}, "
+               f"{cfg.moe.n_experts} experts top-{cfg.moe.top_k}, d_ff "
+               f"{cfg.moe.d_ff_expert}) on x [{MOE_LAYER_B}, {MOE_LAYER_S}]"
+               f" f32 vs f64: tokens whose top-k differ {flips}, disp equal "
+               f"{disp_same}, y max abs diff / max |y| {y_rel!r} (tol "
+               f"{MOE_Y_REL}), aux {aux32.item()!r} vs {aux64.item()!r}; "
+               f"f32 layer {layer_wall!r} s")
+    if flips or not disp_same or not y_rel <= MOE_Y_REL:
+        raise AssertionError(f"MoE layer f32 vs f64: {flips} tokens "
+                             f"routed otherwise, disp equal {disp_same}, y "
+                             f"{y_rel}")
+    out["layer"] = {"flips": flips, "disp_equal": disp_same, "y_rel": y_rel,
+                    "wall_s": layer_wall}
+    del p32, p64, x, r32, r64, y32, y64
+    torch.cuda.empty_cache()
+    results["moe"] = out
+
+
 def _case(cases: list, name: str) -> dict:
     return next(c for c in cases if c["case"] == name)
 
@@ -2782,6 +3192,9 @@ def kernel_entries(results: dict) -> list:
         "launches_decode": results["decode"]["launches"]["rmsnorm"],
         "launches_bf16_prefill":
             results["prefill_bf16"]["launches"]["rmsnorm"],
+        "launches_dbrx_prefill":
+            results["moe"]["prefill"]["launches"]["rmsnorm"],
+        "dbrx_prefill_case": results["moe"]["rmsnorm"],
         "cases": results["rmsnorm"],
     }, {
         "name": "flash_attention",
@@ -2805,6 +3218,9 @@ def kernel_entries(results: dict) -> list:
         "earlier_ms_bf16": flash16["cuda_core_ms"],
         "launches_bf16_prefill":
             results["prefill_bf16"]["launches"]["flash_attention"],
+        "launches_dbrx_prefill":
+            results["moe"]["prefill"]["launches"]["flash_attention"],
+        "dbrx_prefill_case": results["moe"]["flash"],
         "cases": results["flash"],
     }, {
         "name": "ssm_scan",
@@ -2940,6 +3356,8 @@ def main() -> int:
     timed("prefill bf16", phase_prefill_bf16, results)
     timed("workloads", phase_workloads, results)
     timed("reduced sweeps", phase_reduced, results)
+    timed("train", phase_train, results)
+    timed("moe", phase_moe, results)
     _reset_counts()
     from repro_torch.core import compile_cache
     tot = _PROGRAM_TOTALS

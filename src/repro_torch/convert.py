@@ -13,19 +13,26 @@ The reference's model params (``repro.models.init_params``) stack every
 ``cfg.block_period`` layers; layer ``r * period + i`` of the port's
 ``DecoderLM`` is entry ``r`` of ``blocks[i]``, for attention and Mamba
 layers alike (the mixer's leaves keep their names: ``wq ...`` or
-``w_in conv_w conv_b w_bc w_dt dt_bias A_log D w_out``). Its cache has
-the same stacking: ``{'k', 'v'}`` for an attention position,
-``{'conv', 'h'}`` for a Mamba one. ``model_params_from_reference`` reads
-the params, ``weights_from_reference`` one sublayer's (a Mamba mixer's,
-say); ``cache_from_reference`` and ``cache_to_numpy`` map the caches both
-ways.
+``w_in conv_w conv_b w_bc w_dt dt_bias A_log D w_out``; a MoE layer's
+``moe`` holds ``router w_gate w_up w_down`` and, for arctic, ``dense``'s
+SwiGLU leaves). Its cache has the same stacking: ``{'k', 'v'}`` for an
+attention position, ``{'conv', 'h'}`` for a Mamba one.
+``model_params_from_reference`` and ``model_params_to_reference`` map the
+params both ways (the latter also a same-keyed gradient dict),
+``weights_from_reference`` reads one sublayer's (a Mamba mixer's, say);
+``opt_state_from_reference`` and ``opt_state_to_reference`` map the AdamW
+state (``optim/adamw.py``: ``step``, and ``m`` and ``v`` keyed by
+parameter name, a leaf either a float32 tensor or an int8 ``{'q', 's'}``
+pair) to the reference's tree of the params' shape and back;
+``cache_from_reference`` and ``cache_to_numpy`` map the caches both ways.
 """
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Any, Dict, List, Mapping, Optional, Union
 
 import numpy as np
 import torch
+from torch import nn
 
 from repro_torch import device as _device
 from repro_torch.configs.base import ModelConfig
@@ -83,12 +90,9 @@ def _leaf(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a))
 
 
-def model_params_from_reference(params_np: Dict, cfg: ModelConfig,
-                                device=None) -> _model.DecoderLM:
-    """The reference's param tree (numpy leaves, float32 or bfloat16) as
-    the port's DecoderLM on ``device`` (None = CUDA)."""
-    dev = _device.resolve(device)
-    period = cfg.block_period
+def _state_from_reference(params_np: Dict, period: int
+                          ) -> Dict[str, torch.Tensor]:
+    """The reference's param tree as the port's state dict (CPU tensors)."""
     state = {}
     for key, value in params_np.items():
         if key != "blocks":
@@ -99,16 +103,149 @@ def model_params_from_reference(params_np: Dict, cfg: ModelConfig,
                 leaf = np.asarray(leaf)
                 for r in range(leaf.shape[0]):
                     state[f"layers.{r * period + i}.{name}"] = _leaf(leaf[r])
-    params = _model.init_params(cfg, 0, state["final_norm"].dtype, dev)
-    params.load_state_dict(state, strict=True)   # every name and shape
+    return state
+
+
+def load_params_from_reference(params: _model.DecoderLM,
+                               params_np: Dict) -> _model.DecoderLM:
+    """Write the reference's param tree (numpy leaves) into ``params`` in
+    place, each leaf cast to its parameter's dtype and device; every name
+    and shape must match."""
+    params.load_state_dict(
+        _state_from_reference(params_np, params.cfg.block_period),
+        strict=True)
     return params
+
+
+def model_params_from_reference(params_np: Dict, cfg: ModelConfig,
+                                device=None) -> _model.DecoderLM:
+    """The reference's param tree (numpy leaves, float32 or bfloat16) as
+    the port's DecoderLM on ``device`` (None = CUDA)."""
+    dev = _device.resolve(device)
+    dtype = _leaf(params_np["final_norm"]).dtype
+    return load_params_from_reference(
+        _model.init_params(cfg, 0, dtype, dev), params_np)
+
+
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A tensor as numpy; bfloat16 (which numpy has no type for) as its
+    float32 values."""
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def _ref_path(name: str, period: int):
+    """A port parameter name -> (its path in the reference's tree, the
+    repeat r its leaf stacks at, or None outside ``blocks``)."""
+    parts = name.split(".")
+    if parts[0] != "layers":
+        return parts, None
+    r, i = divmod(int(parts[1]), period)
+    return ["blocks", i] + parts[2:], r
+
+
+def _ref_leaf(tree: Dict, name: str, period: int):
+    """The reference tree's leaf for port name ``name``: a numpy array, or
+    a dict of arrays (an int8 moment's {'q', 's'}), at its repeat."""
+    path, r = _ref_path(name, period)
+    node = tree
+    for key in path:
+        node = node[key]
+    if r is None:
+        return node
+    if isinstance(node, dict):
+        return {k: np.asarray(v)[r] for k, v in node.items()}
+    return np.asarray(node)[r]
+
+
+def _named_to_tree(named: Mapping[str, Any], cfg: ModelConfig) -> Dict:
+    """{port name: numpy leaf or dict of them} -> the reference's nested
+    tree, ``blocks`` stacked [R, ...] per super-block position."""
+    period = cfg.block_period
+    repeats = cfg.n_layers // period
+    tree: Dict = {}
+    stacks: Dict = {}
+    for name, leaf in named.items():
+        path, r = _ref_path(name, period)
+        if r is None:
+            node = tree
+            for key in path[:-1]:
+                node = node.setdefault(key, {})
+            node[path[-1]] = leaf
+        else:
+            stacks.setdefault(tuple(path), [None] * repeats)[r] = leaf
+    if stacks:
+        tree["blocks"] = [{} for _ in range(period)]
+    for path, leaves in stacks.items():
+        node = tree["blocks"][path[1]]
+        for key in path[2:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = ({k: np.stack([lf[k] for lf in leaves])
+                           for k in leaves[0]}
+                          if isinstance(leaves[0], dict)
+                          else np.stack(leaves))
+    return tree
+
+
+def model_params_to_reference(params: Union[_model.DecoderLM,
+                                            Mapping[str, torch.Tensor]],
+                              cfg: Optional[ModelConfig] = None) -> Dict:
+    """The port's DecoderLM (or a dict of tensors keyed by its parameter
+    names, a gradient dict say) as the reference's param tree with numpy
+    leaves (bfloat16 as float32). ``cfg`` defaults to the model's own."""
+    if isinstance(params, nn.Module):
+        cfg = cfg or params.cfg
+        params = dict(params.named_parameters())
+    return _named_to_tree({n: to_numpy(t) for n, t in params.items()}, cfg)
+
+
+def _slot_to_numpy(slot):
+    if isinstance(slot, dict):
+        return {k: to_numpy(v) for k, v in slot.items()}
+    return to_numpy(slot)
+
+
+def opt_state_to_reference(state: Dict, cfg: ModelConfig) -> Dict:
+    """The port's AdamW state as the reference's ``init_opt_state`` tree
+    (numpy leaves)."""
+    return {"step": np.asarray(to_numpy(state["step"]), np.int32),
+            "m": _named_to_tree({n: _slot_to_numpy(v)
+                                 for n, v in state["m"].items()}, cfg),
+            "v": _named_to_tree({n: _slot_to_numpy(v)
+                                 for n, v in state["v"].items()}, cfg)}
+
+
+def opt_state_from_reference(tree_np: Dict, params: _model.DecoderLM,
+                             device=None) -> Dict:
+    """The reference's AdamW state (numpy leaves) as the port's, keyed by
+    ``params``' names, on ``device`` (None = CUDA)."""
+    dev = _device.resolve(device)
+    period = params.cfg.block_period
+
+    def slot(tree, name):
+        leaf = _ref_leaf(tree, name, period)
+        if isinstance(leaf, dict):
+            return {k: _leaf(v).to(dev) for k, v in leaf.items()}
+        return _leaf(leaf).to(dev)
+
+    names = [n for n, _ in params.named_parameters()]
+    return {"step": torch.as_tensor(np.asarray(tree_np["step"], np.int32),
+                                    device=dev),
+            "m": {n: slot(tree_np["m"], n) for n in names},
+            "v": {n: slot(tree_np["v"], n) for n in names}}
 
 
 def weights_from_reference(tree_np: Dict, device=None) -> Weights:
     """One sublayer's param dict of the reference (numpy leaves, e.g. the
-    ``init_mamba`` dict) as the port's ``Weights`` on ``device``."""
+    ``init_mamba`` or ``init_moe`` dict; a nested dict becomes a nested
+    ``Weights``) as the port's ``Weights`` on ``device``."""
     dev = _device.resolve(device)
-    return Weights(**{k: _leaf(v).to(dev) for k, v in tree_np.items()})
+    w = Weights(**{k: _leaf(v).to(dev) for k, v in tree_np.items()
+                   if not isinstance(v, dict)})
+    for k, v in tree_np.items():
+        if isinstance(v, dict):           # a nested sublayer (moe "dense")
+            setattr(w, k, weights_from_reference(v, dev))
+    return w
 
 
 def cache_from_reference(cache_np: List[Dict], cfg: ModelConfig,

@@ -11,6 +11,10 @@ reference (``repro.models.layers``) selects its Pallas kernels:
 
 ``CallConfig.kernel_backend`` picks the kernels' backend ("auto": the CUDA
 kernel for CUDA tensors, the plain version for CPU tensors; "ref"; "cuda").
+The kernels have no backward: under autograd both routes raise
+(``refuse_grad``) on every device, as the reference's ``jax.grad`` through
+a ``pallas_call`` does. Training takes "dense" or "chunked"; the latter's
+``flash_chunked`` has the reference's custom backward.
 
 Weights keep the reference's layout ([d_in, d_out], applied as ``x @ w``).
 As in the reference, activations and weights share one dtype.
@@ -53,6 +57,8 @@ class CallConfig:
     batch_axes: Tuple[str, ...] = ()
     seq_axis: Optional[str] = None
     moe_ep_axis: Optional[str] = None
+    # tokens a MoE layer routes together (models/moe.py)
+    moe_group_size: int = 1024
 
     def __post_init__(self):
         if self.attention_impl not in ATTENTION_IMPLS:
@@ -64,6 +70,23 @@ class CallConfig:
             raise NotImplementedError(
                 "mesh knobs (batch_axes, seq_axis, moe_ep_axis) are not "
                 "ported: the port runs on one device (ROADMAP A17.7)")
+
+
+def refuse_grad(what: str, *tensors: Optional[torch.Tensor]) -> None:
+    """Raise NotImplementedError when autograd would record a hand-written
+    kernel's route: the kernels have no backward, and on a card they return
+    tensors that autograd does not track, so a gradient would be dropped
+    without a word. The reference refuses the same (``jax.grad`` through
+    its ``pallas_call`` raises). Raised on every device, the CPU's plain
+    path included, so that both refuse alike."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                       for t in tensors):
+        raise NotImplementedError(
+            f"{what} has no backward, as the reference's Pallas kernel has "
+            "none (jax.grad through its pallas_call raises): train with "
+            "the plain route (attention_impl 'dense' or 'chunked', "
+            "use_pallas_norm=False, use_kernel=False), or run this under "
+            "torch.no_grad()")
 
 
 def _inv_sqrt(d: int) -> float:
@@ -82,6 +105,7 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5,
     returns the promoted dtype). In fp32 the two agree; in bf16 they round
     differently, as in the reference."""
     if call is not None and call.use_pallas_norm and x.dim() >= 2:
+        refuse_grad("use_pallas_norm (the RMSNorm kernel)", x, w)
         return rmsnorm_ops.rmsnorm(x, w, eps=eps,
                                    backend=call.kernel_backend)
     dt = x.dtype
@@ -259,13 +283,71 @@ def _chunk_fwd_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out, lse
 
 
+def _flash_bwd(q, k, v, out, lse, dout, causal: bool, chunk: int):
+    """The reference's ``_flash_bwd``: recompute each KV chunk's
+    probabilities from the saved lse; the products take their inputs at
+    the KV dtype (``p`` and ``ds`` cast to it) and sum in fp32."""
+    b, sq, h, d = q.shape
+    sk, kh = k.shape[1], k.shape[2]
+    g = h // kh
+    nchunk = sk // chunk
+    cdt = k.dtype
+    qg = _gqa_expand(q, kh).float()                          # [b,q,kh,g,d]
+    dog = _gqa_expand(dout, kh).float()
+    og = _gqa_expand(out, kh).float()
+    qg_c, dog_c = qg.to(cdt).float(), dog.to(cdt).float()
+    scale = _inv_sqrt(d)
+    dev = q.device
+    qp = torch.arange(sq, device=dev)
+    delta = torch.einsum("bqkgd,bqkgd->bkgq", dog, og)      # rowsum(dO * O)
+    dq = torch.zeros((b, sq, kh, g, d), dtype=torch.float32, device=dev)
+    dks, dvs = [], []
+    for ci in range(nchunk):
+        kb = k[:, ci * chunk:(ci + 1) * chunk].float()
+        vb = v[:, ci * chunk:(ci + 1) * chunk].float()
+        t_idx = ci * chunk + torch.arange(chunk, device=dev)
+        logits = torch.einsum("bqkgd,btkd->bkgqt", qg, kb) * scale
+        if causal:
+            bias = torch.where(t_idx[None, :] <= qp[:, None], 0.0, -1e30)
+            logits = logits + bias[None, None, None]
+        p = torch.exp(logits - lse[..., None]).to(cdt).float()
+        dvs.append(torch.einsum("bkgqt,bqkgd->btkd", p, dog_c))
+        dp = torch.einsum("bqkgd,btkd->bkgqt", dog_c, vb)
+        ds = (p * (dp - delta[..., None]) * scale).to(cdt).float()
+        dq = dq + torch.einsum("bkgqt,btkd->bqkgd", ds, kb)
+        dks.append(torch.einsum("bkgqt,bqkgd->btkd", ds, qg_c))
+    return (dq.reshape(b, sq, h, d).to(q.dtype),
+            torch.cat(dks, dim=1).to(k.dtype),
+            torch.cat(dvs, dim=1).to(v.dtype))
+
+
+class _FlashChunked(torch.autograd.Function):
+    """The reference's ``custom_vjp`` ``flash_chunked``: the forward keeps
+    only q, k, v, out and the lse [B, Kh, G, Sq]; the backward recomputes
+    chunk by chunk (``_flash_bwd``), so no [Sq, Sk] tensor outlives a
+    chunk."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, chunk: int):
+        out, lse = _chunk_fwd_lse(q, k, v, causal=causal, chunk=chunk)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.chunk = causal, chunk
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = _flash_bwd(q, k, v, out, lse, dout, ctx.causal,
+                                ctx.chunk)
+        return dq, dk, dv, None, None
+
+
 def flash_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   causal: bool, chunk: int) -> torch.Tensor:
-    """Forward of the reference's ``flash_chunked``. Its custom backward
-    (recompute per chunk from the saved lse) belongs to training, ROADMAP
-    A17.2; autograd through this forward is plain autograd."""
-    out, _ = _chunk_fwd_lse(q, k, v, causal=causal, chunk=chunk)
-    return out
+    """The reference's ``flash_chunked``: the chunked online-softmax
+    forward with its custom backward (``_FlashChunked``). Sk must be a
+    multiple of ``chunk``."""
+    return _FlashChunked.apply(q, k, v, causal, chunk)
 
 
 def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -275,6 +357,8 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     full_self = (causal and kv_len is None and q_pos is None
                  and q.shape[1] == k.shape[1])
     if call.attention_impl == "pallas" and full_self:
+        refuse_grad('attention_impl="pallas" (the flash attention kernel)',
+                    q, k, v)
         return flash_ops.flash_attention(q, k, v, causal=True,
                                          backend=call.kernel_backend)
     if call.attention_impl in ("chunked", "pallas"):

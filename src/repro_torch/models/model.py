@@ -1,7 +1,8 @@
 """Decoder LM composition: embed -> layers -> norm -> head, for the dense
-family (every layer an ``attn`` mixer with a dense SwiGLU MLP) and the
-hybrid one without MoE (``mamba`` mixers with ``attn`` between them, as
-jamba interleaves them).
+family (every layer an ``attn`` mixer with a dense SwiGLU MLP), the MoE
+family (a MoE MLP in place of the dense one, ``models/moe.py``) and the
+hybrid (``mamba`` mixers with ``attn`` between them and MoE every other
+layer, as jamba interleaves them).
 
 The reference stacks parameters ``[R, ...]`` over repeats of a super-block
 and scans over them; the port holds one module per layer in
@@ -13,12 +14,14 @@ CUDA and raises without a card):
   forward_train(params, cfg, call, batch)              -> (logits, aux)
   init_cache(cfg, batch, max_seq, dtype, device)       -> [per-layer cache]
   forward_decode(params, cfg, call, batch, cache, pos) -> (logits, cache)
+  loss_fn(params, cfg, call, batch)                    -> (loss, parts)
 
-The mlstm and slstm mixers, MoE and cross-attention layers raise
+The mlstm and slstm mixers and cross-attention layers raise
 ``NotImplementedError`` naming their ROADMAP item. As in the reference
 (``model.py:173,267``), a Mamba layer of the model scans with the chunked
-scan, not the ssm_scan kernel; ``ssm.mamba_forward(use_kernel=True)`` is
-the kernel's entry point.
+scan (whose custom backward keeps only chunk-start states), not the
+ssm_scan kernel; ``ssm.mamba_forward(use_kernel=True)`` is the kernel's
+entry point.
 """
 from __future__ import annotations
 
@@ -31,6 +34,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch import device as _device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import ssm
+from repro_torch.models.moe import init_moe, moe_mlp
 from repro_torch.models.layers import (CallConfig, normal,
                                        init_attention, init_mlp, rms_norm,
                                        self_attention, swiglu)
@@ -41,7 +45,6 @@ MIXERS = ("attn", "mamba")
 _NOT_PORTED = {
     "mlstm": "the mLSTM mixer (ROADMAP A17.4)",
     "slstm": "the sLSTM mixer (ROADMAP A17.4)",
-    "moe": "MoE layers (ROADMAP A17.5)",
     "cross": "cross-attention layers (ROADMAP A17.6)",
 }
 
@@ -53,8 +56,6 @@ def check_supported(cfg: ModelConfig) -> None:
         what = None
         if kind not in MIXERS:
             what = _NOT_PORTED.get(kind, kind)
-        elif cfg.layer_has_moe(i):
-            what = _NOT_PORTED["moe"]
         elif cfg.layer_has_cross_attn(i):
             what = _NOT_PORTED["cross"]
         if what is not None:
@@ -68,31 +69,39 @@ def check_supported(cfg: ModelConfig) -> None:
 
 class Layer(nn.Module):
     """One decoder layer: norm1, the mixer of its ``kind`` ("attn" or
-    "mamba"), and (when d_ff) norm2 with the SwiGLU MLP."""
+    "mamba"), and norm2 with the MoE MLP (``moe``, where
+    ``cfg.layer_has_moe``) or else, when d_ff, the SwiGLU MLP (``mlp``),
+    as the reference's ``_init_layer``."""
 
-    def __init__(self, cfg: ModelConfig, kind: str, gen: torch.Generator,
-                 dtype=torch.float32, device=None):
+    def __init__(self, cfg: ModelConfig, kind: str, has_moe: bool,
+                 gen: torch.Generator, dtype=torch.float32, device=None):
         super().__init__()
         self.kind = kind
+        self.has_moe = has_moe
         ones = dict(dtype=dtype, device=device)
         self.norm1 = nn.Parameter(torch.ones((cfg.d_model,), **ones))
         if kind == "mamba":
             self.mixer = ssm.init_mamba(cfg, gen, dtype, device)
         else:
             self.mixer = init_attention(cfg, gen, dtype, device)
-        if cfg.d_ff:
+        if has_moe:
+            self.norm2 = nn.Parameter(torch.ones((cfg.d_model,), **ones))
+            self.moe = init_moe(cfg, gen, dtype, device)
+        elif cfg.d_ff:
             self.norm2 = nn.Parameter(torch.ones((cfg.d_model,), **ones))
             self.mlp = init_mlp(cfg, gen, cfg.d_ff, dtype, device)
 
 
 class DecoderLM(nn.Module):
     """embed [V, d] (when the config embeds tokens), head [d, V] (when it
-    is not tied), one ``Layer`` per layer, final_norm [d]."""
+    is not tied), one ``Layer`` per layer, final_norm [d]; ``cfg`` is the
+    config it was built for."""
 
     def __init__(self, cfg: ModelConfig, gen: torch.Generator,
                  dtype=torch.float32, device=None):
         super().__init__()
         check_supported(cfg)
+        self.cfg = cfg
         d = cfg.d_model
         self.final_norm = nn.Parameter(torch.ones((d,), dtype=dtype,
                                                   device=device))
@@ -102,16 +111,17 @@ class DecoderLM(nn.Module):
         if not cfg.tie_embeddings:
             self.head = nn.Parameter(
                 normal(gen, (d, cfg.vocab), d ** -0.5, dtype, device))
-        self.layers = nn.ModuleList(Layer(cfg, kind, gen, dtype, device)
-                                    for kind in cfg.layer_kinds())
+        self.layers = nn.ModuleList(
+            Layer(cfg, kind, cfg.layer_has_moe(i), gen, dtype, device)
+            for i, kind in enumerate(cfg.layer_kinds()))
 
 
 def init_params(cfg: ModelConfig, key: Union[int, torch.Generator] = 0,
                 dtype=torch.float32, device=None) -> DecoderLM:
     """Random weights with the reference's shapes and scales
     (``model.py:61-83``): embed ~ N(0, 0.02²), head ~ N(0, 1/d), the
-    layers as ``init_attention`` / ``ssm.init_mamba`` / ``init_mlp``,
-    norms at one. ``key`` is
+    layers as ``init_attention`` / ``ssm.init_mamba`` / ``init_moe`` /
+    ``init_mlp``, norms at one. ``key`` is
     an int seed or a ``torch.Generator`` on ``device``. The values are the
     port's own draws, not JAX's."""
     dev = _device.resolve(device)
@@ -132,7 +142,9 @@ def param_count_actual(params: DecoderLM) -> int:
 
 def _apply_layer(cfg: ModelConfig, call: CallConfig, lp: Layer,
                  x: torch.Tensor, *, positions, cache: Optional[dict]
-                 ) -> Tuple[torch.Tensor, Optional[dict]]:
+                 ) -> Tuple[torch.Tensor, Optional[dict], torch.Tensor]:
+    """Returns (x, the layer's new cache or None, its MoE MLP's aux loss
+    or, without MoE, None)."""
     h = rms_norm(x, lp.norm1, cfg.norm_eps, call)
     if lp.kind == "mamba":
         if cache is not None:
@@ -143,10 +155,15 @@ def _apply_layer(cfg: ModelConfig, call: CallConfig, lp: Layer,
         out, new_cache = self_attention(lp.mixer, h, cfg=cfg, call=call,
                                         positions=positions, cache=cache)
     x = x + out
-    if cfg.d_ff:
+    aux = None
+    if lp.has_moe:
+        h2 = rms_norm(x, lp.norm2, cfg.norm_eps, call)
+        y, aux = moe_mlp(lp.moe, h2, cfg=cfg, group_size=call.moe_group_size)
+        x = x + y
+    elif cfg.d_ff:
         h2 = rms_norm(x, lp.norm2, cfg.norm_eps, call)
         x = x + swiglu(lp.mlp, h2)
-    return x, new_cache
+    return x, new_cache, aux
 
 
 # ---------------------------------------------------------------------------
@@ -171,22 +188,56 @@ def _head(params: DecoderLM, cfg: ModelConfig,
 def forward_train(params: DecoderLM, cfg: ModelConfig, call: CallConfig,
                   batch: Dict) -> Tuple[torch.Tensor, torch.Tensor]:
     """batch: tokens [B,S] (or frame_emb [B,S,D]). Returns (logits
-    [B,S,V] fp32, aux_loss scalar — zero: no layer of the port has an
-    auxiliary loss)."""
+    [B,S,V] fp32, aux_loss: a float32 scalar, the sum of the MoE layers'
+    aux losses). Under ``call.remat`` and autograd each layer is
+    recomputed in the backward pass (``torch.utils.checkpoint``)."""
     x = _embed(params, cfg, call, batch)
     positions = torch.arange(x.shape[1], device=x.device)
+    period = cfg.block_period
 
     def layer(lp, x):
-        return _apply_layer(cfg, call, lp, x, positions=positions,
-                            cache=None)[0]
+        x, _, aux = _apply_layer(cfg, call, lp, x, positions=positions,
+                                 cache=None)
+        return x, aux
 
-    for lp in params.layers:
+    # as the reference: each super-block's aux summed in layer order (its
+    # sum from zero: 0 + a is a), then the blocks' sums added
+    block_aux: Dict[int, torch.Tensor] = {}
+    for i, lp in enumerate(params.layers):
         if call.remat and torch.is_grad_enabled():
-            x = checkpoint(layer, lp, x, use_reentrant=False)
+            x, aux = checkpoint(layer, lp, x, use_reentrant=False)
         else:
-            x = layer(lp, x)
+            x, aux = layer(lp, x)
+        if aux is not None:
+            r = i // period
+            block_aux[r] = block_aux[r] + aux if r in block_aux else aux
     x = rms_norm(x, params.final_norm, cfg.norm_eps, call)
-    return _head(params, cfg, x), torch.zeros((), device=x.device)
+    aux = (torch.stack(list(block_aux.values())).sum() if block_aux
+           else torch.zeros((), dtype=torch.float32, device=x.device))
+    return _head(params, cfg, x), aux
+
+
+def loss_fn(params: DecoderLM, cfg: ModelConfig, call: CallConfig,
+            batch: Dict) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The reference's ``loss_fn`` (``model.py:191-213``): the mean
+    cross entropy over ``labels`` [B,S] (weighted by an optional
+    ``loss_mask``) from the logits less their max (held out of the
+    gradient), plus the MoE aux loss and a 1e-4 z-loss on the
+    log-partition. Returns (total, {"nll", "aux", "zloss"})."""
+    logits, aux = forward_train(params, cfg, call, batch)
+    labels = batch["labels"].long()
+    m = logits.amax(dim=-1, keepdim=True).detach()
+    shifted = logits - m
+    lse = torch.log(torch.exp(shifted).sum(dim=-1))
+    picked = torch.gather(shifted, -1, labels[..., None])[..., 0]
+    nll = lse - picked
+    mask = batch.get("loss_mask")
+    if mask is None:
+        mask = torch.ones_like(nll)
+    nll = (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    zloss = 1e-4 * torch.mean((lse + m[..., 0]) ** 2)
+    total = nll + aux + zloss
+    return total, {"nll": nll, "aux": aux, "zloss": zloss}
 
 
 # ---------------------------------------------------------------------------
@@ -230,7 +281,7 @@ def forward_decode(params: DecoderLM, cfg: ModelConfig, call: CallConfig,
     pos = int(pos)
     new_cache = []
     for lp, lc in zip(params.layers, cache):
-        x, nc = _apply_layer(cfg, call, lp, x, positions=pos, cache=lc)
+        x, nc, _ = _apply_layer(cfg, call, lp, x, positions=pos, cache=lc)
         new_cache.append(nc)
     x = rms_norm(x, params.final_norm, cfg.norm_eps, call)
     return _head(params, cfg, x)[:, 0], new_cache

@@ -10,8 +10,14 @@ fp32 (7 steps for L = 128): live memory is bounded by the chunk, never
 ``[B, S, Di, N]``. It associates the products differently from XLA's
 ``lax.associative_scan``, so the two agree to rounding, not bitwise.
 
-Not ported here: the custom backward of the chunked scan (``_sel_bwd``,
-training, ROADMAP A17.2) and the mLSTM / sLSTM mixers (A17.4).
+With no ``h0`` and S a multiple of the chunk, the chunked scan is the
+reference's ``custom_vjp`` ``_selective_scan`` (``_SelectiveScan``): its
+forward keeps only the chunk-start states [nchunk, B, Di, N], and its
+backward (``_sel_bwd``) recomputes each chunk's states and runs the
+reversed scan for dh, so training never holds [B, S, Di, N]. The kernel
+route has no backward and refuses autograd (``layers.refuse_grad``).
+
+Not ported here: the mLSTM / sLSTM mixers (ROADMAP A17.4).
 """
 from __future__ import annotations
 
@@ -22,7 +28,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ssm_scan import ops as ssm_ops
-from repro_torch.models.layers import Weights, normal
+from repro_torch.models.layers import Weights, normal, refuse_grad
 
 
 def init_mamba(cfg: ModelConfig, gen: torch.Generator, dtype=torch.float32,
@@ -85,12 +91,14 @@ def _ssm_chunk_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor
 
 
 def _chunked_scan(x, dt, B, C, A, D, chunk: int,
-                  h0: Optional[torch.Tensor]) -> torch.Tensor:
+                  h0: Optional[torch.Tensor],
+                  starts: Optional[list] = None) -> torch.Tensor:
     """The reference's two chunked paths in one: ``_ssm_fwd_core`` (the
     forward of ``_selective_scan``, h0 = 0 and S a multiple of the chunk)
     and the padded ``lax.scan`` branch of ``mamba_ssm`` (any S, any h0).
     Padded steps have dt = 0, so they leave the state as it was, and their
-    outputs are cut off."""
+    outputs are cut off. ``starts``, when given, receives each chunk's
+    start state [B, Di, N]."""
     bsz, s, di = x.shape
     n = A.shape[1]
     h = (torch.zeros((bsz, di, n), dtype=torch.float32, device=x.device)
@@ -101,6 +109,8 @@ def _chunked_scan(x, dt, B, C, A, D, chunk: int,
                        for t in (x, dt, B, C))
     ys = []
     for c in range(nchunk):
+        if starts is not None:
+            starts.append(h)
         sl = slice(c * chunk, (c + 1) * chunk)
         dtf = dtp[:, sl].float()
         a = torch.exp(dtf[..., None] * A)                        # [B,L,Di,N]
@@ -113,6 +123,69 @@ def _chunked_scan(x, dt, B, C, A, D, chunk: int,
     return y + x * D
 
 
+def _sel_bwd(x, dt, B, C, A, D, h_starts, dy, chunk: int):
+    """The reference's ``_sel_bwd`` (``ssm.py:147-207``): chunk by chunk
+    from the last, recompute the chunk's states from its start state, run
+    the reversed scan dh_t = g_t + a_{t+1} dh_{t+1} (g_t = dy_t C_t, plus
+    the next chunk's carry at its end), and reduce dh to the inputs'
+    gradients. Returns (dx, ddt, dB, dC, dA, dD) in the inputs' dtypes."""
+    bsz, s, di = x.shape
+    n = A.shape[1]
+    nchunk = s // chunk
+    Af = A.float()
+    dh_carry = torch.zeros((bsz, di, n), dtype=torch.float32,
+                           device=x.device)
+    zero = dh_carry
+    dA = torch.zeros((di, n), dtype=torch.float32, device=x.device)
+    parts = []
+    for c in reversed(range(nchunk)):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        dtf, xf = dt[:, sl].float(), x[:, sl].float()
+        Bf = B[:, sl, None, :].float()
+        dyf = dy[:, sl].float()
+        hs = h_starts[c]
+        a = torch.exp(dtf[..., None] * Af)                       # [B,L,Di,N]
+        h_all, _ = _ssm_chunk_scan(a, (dtf * xf)[..., None] * Bf, hs)
+        h_prev = torch.cat([hs[:, None], h_all[:, :-1]], dim=1)
+        g = dyf[..., None] * C[:, sl, None, :].float()
+        g = torch.cat([g[:, :-1], g[:, -1:] + dh_carry[:, None]], dim=1)
+        a_shift = torch.cat([a[:, 1:], torch.zeros_like(a[:, :1])], dim=1)
+        dh_r, _ = _ssm_chunk_scan(a_shift.flip(1), g.flip(1), zero)
+        dh = dh_r.flip(1)
+        parts.append((
+            torch.sum(dh * dtf[..., None] * Bf, dim=3),               # dx
+            torch.sum(dh * (a * Af * h_prev + xf[..., None] * Bf), dim=3),
+            torch.sum(dh * (dtf * xf)[..., None], dim=2),             # dB
+            torch.sum(dyf[..., None] * h_all, dim=2)))                # dC
+        dA = dA + torch.sum(dh * a * dtf[..., None] * h_prev, dim=(0, 1))
+        dh_carry = a[:, 0] * dh[:, 0]
+    dx, ddt, dB, dC = (torch.cat(t[::-1], dim=1) for t in zip(*parts))
+    dyf = dy.float()
+    dx = dx + dyf * D
+    dD = torch.sum(dyf * x.float(), dim=(0, 1))
+    return (dx.to(x.dtype), ddt.to(dt.dtype), dB.to(B.dtype),
+            dC.to(C.dtype), dA.to(A.dtype), dD.to(D.dtype))
+
+
+class _SelectiveScan(torch.autograd.Function):
+    """The reference's ``custom_vjp`` ``_selective_scan``: h0 = 0, S a
+    multiple of ``chunk``; saves the inputs and the chunk-start states."""
+
+    @staticmethod
+    def forward(ctx, x, dt, B, C, A, D, chunk: int):
+        starts: list = []
+        y = _chunked_scan(x, dt, B, C, A, D, chunk, None, starts)
+        ctx.save_for_backward(x, dt, B, C, A, D, torch.stack(starts))
+        ctx.chunk = chunk
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, dt, B, C, A, D, h_starts = ctx.saved_tensors
+        return (*_sel_bwd(x, dt, B, C, A, D, h_starts, dy, ctx.chunk),
+                None)
+
+
 def mamba_ssm(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
               C: torch.Tensor, A: torch.Tensor, D: torch.Tensor, chunk: int,
               h0: Optional[torch.Tensor] = None,
@@ -121,12 +194,18 @@ def mamba_ssm(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
     D: [Di]. ``use_kernel`` sends it to ``kernels/ssm_scan`` (the CUDA
     kernel for CUDA tensors), which starts from a zero state: with an
     ``h0`` that raises, where the reference would silently drop it
-    (ROADMAP Queue C)."""
+    (ROADMAP Queue C); under autograd it raises too (no backward). With no
+    ``h0`` and S a multiple of ``chunk`` the scan is ``_SelectiveScan``
+    (custom backward), else the padded chunked scan (plain autograd)."""
     if use_kernel:
         if h0 is not None:
             raise ValueError("use_kernel=True scans from a zero state; an h0 "
                              "needs use_kernel=False")
+        refuse_grad("mamba_ssm(use_kernel=True) (the ssm_scan kernel)",
+                    x, dt, B, C, A, D)
         return ssm_ops.ssm_scan(x, dt, B, C, A, D)
+    if h0 is None and x.shape[1] % chunk == 0:
+        return _SelectiveScan.apply(x, dt, B, C, A, D, chunk)
     return _chunked_scan(x, dt, B, C, A, D, chunk, h0)
 
 

@@ -14,7 +14,8 @@ chunk 16), with the reference's weights carried across by ``convert``:
   ``moe=None`` (7 Mamba layers and one attention layer, SwiGLU MLPs):
   logits below 1e-4 of the reference's, decode within the reference's
   5e-3 of the prefill (tests/test_models.py), caches both ways;
-- ``jamba.reduced()`` itself still raising for its MoE layers (A17.5).
+- ``jamba.reduced()`` itself, MoE every other layer: ``forward_train``
+  logits and aux against the reference's.
 """
 import dataclasses
 from functools import partial
@@ -239,9 +240,26 @@ def test_full_width_mixer_param_count():
     assert sum(int(np.prod(a.shape)) for a in shapes.values()) == 403_570_688
 
 
-def test_jamba_with_moe_still_raises():
+def test_jamba_with_moe_matches_reference():
+    """Reduced jamba with its MoE layers (every other layer; the Mamba
+    layers, the attention layer and the MoE MLPs together): the logits
+    within 1e-4 and the summed aux loss within 1e-5 of the reference's,
+    and its cache built per layer."""
+    jcfg = jax_get_config(ARCH).reduced()
     cfg = get_config(ARCH).reduced()
-    with pytest.raises(NotImplementedError, match="ROADMAP A17.5"):
-        init_params(cfg, 0, device=CPU)
-    with pytest.raises(NotImplementedError, match="ROADMAP A17.5"):
-        init_cache(cfg, 1, 4, device=CPU)
+    assert [cfg.layer_has_moe(i) for i in range(4)] == [False, True] * 2
+    jparams = jax_init_params(jcfg, jax.random.PRNGKey(0))
+    params = convert.model_params_from_reference(
+        jax.tree.map(np.asarray, jparams), cfg, device=CPU)
+    assert param_count_actual(params) == param_count(cfg)
+    tokens = np.random.RandomState(0).randint(0, cfg.vocab, (2, 32))
+    jcall, call = _calls("dense", False)
+    want, want_aux = jax_forward(jparams, jcfg, jcall,
+                                 {"tokens": jnp.asarray(tokens)})
+    with torch.no_grad():
+        got, aux = forward_train(params, cfg, call,
+                                 {"tokens": torch.from_numpy(tokens)})
+    assert _err(got.numpy(), want) < TOL
+    assert abs(float(aux) - float(want_aux)) < 1e-5
+    cache = init_cache(cfg, 1, 4, device=CPU)
+    assert len(cache) == cfg.n_layers

@@ -9,7 +9,8 @@ with the reference's weights carried across by ``convert``:
 - a ``forward_decode`` loop: the logits of every step and the final cache
   against the reference's loop, below 1e-4;
 - param accounting and ``init_params`` shapes, for every arch the port
-  runs; the others raise NotImplementedError naming their ROADMAP item.
+  runs (dense, MoE, the Mamba hybrid); the others (the xLSTM mixers and
+  cross-attention) raise NotImplementedError naming their ROADMAP item.
 """
 import dataclasses
 from functools import partial
@@ -41,8 +42,11 @@ CPU = "cpu"
 # chunked_attention
 IMPLS = [("dense", 512, False), ("chunked", 16, False),
          ("chunked", 512, False), ("pallas", 16, True)]
-DENSE_ARCHS = [a for a in list_archs()
-               if jax_get_config(a).family in ("dense", "audio")]
+# the archs the port runs: every family but the xLSTM mixers' and the
+# vision model's cross-attention
+RUN_ARCHS = [a for a in list_archs()
+             if jax_get_config(a).family in ("dense", "audio", "moe",
+                                             "hybrid")]
 
 
 def _calls(impl, chunk, pallas_norm):
@@ -138,12 +142,12 @@ def test_config_copies_match_reference(arch):
 
 @pytest.mark.parametrize("arch", list_archs())
 def test_init_params_shapes_and_count(arch):
-    """Dense archs: the port's init_params has param_count(cfg) parameters
-    and the reference's tree of names and shapes (the reference's
-    eval_shape tree loads into it strictly). The others raise
+    """The archs the port runs: its init_params has param_count(cfg)
+    parameters and the reference's tree of names and shapes (the
+    reference's eval_shape tree loads into it strictly). The others raise
     NotImplementedError naming their ROADMAP item."""
     cfg = get_config(arch).reduced()
-    if arch not in DENSE_ARCHS:
+    if arch not in RUN_ARCHS:
         with pytest.raises(NotImplementedError, match="ROADMAP A17"):
             init_params(cfg, 0, device=CPU)
         with pytest.raises(NotImplementedError, match="ROADMAP A17"):
@@ -160,7 +164,8 @@ def test_init_params_shapes_and_count(arch):
     # the scales of the draws: embed ~ N(0, 0.02^2), wq ~ N(0, 1/d)
     if cfg.embed_inputs:
         assert abs(float(params.embed.detach().std()) - 0.02) < 0.002
-    wq = params.layers[0].mixer.wq.detach()
+    attn = cfg.layer_kinds().index("attn")
+    wq = params.layers[attn].mixer.wq.detach()
     assert abs(float(wq.std()) - cfg.d_model ** -0.5) < 0.1 * cfg.d_model ** -0.5
 
 
