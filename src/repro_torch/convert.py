@@ -11,12 +11,16 @@ back. The tests use them to start both packages from one mid-run state.
 The reference's model params (``repro.models.init_params``) stack every
 ``blocks`` leaf ``[R, ...]`` over the R repeats of a super-block of
 ``cfg.block_period`` layers; layer ``r * period + i`` of the port's
-``DecoderLM`` is entry ``r`` of ``blocks[i]``, for attention and Mamba
-layers alike (the mixer's leaves keep their names: ``wq ...`` or
-``w_in conv_w conv_b w_bc w_dt dt_bias A_log D w_out``; a MoE layer's
-``moe`` holds ``router w_gate w_up w_down`` and, for arctic, ``dense``'s
-SwiGLU leaves). Its cache has the same stacking: ``{'k', 'v'}`` for an
-attention position, ``{'conv', 'h'}`` for a Mamba one.
+``DecoderLM`` is entry ``r`` of ``blocks[i]``, for every layer kind
+alike (the mixer's leaves keep their names: ``wq ...``, ``w_in conv_w
+conv_b w_bc w_dt dt_bias A_log D w_out`` (Mamba), ``wq wk wv w_i b_i w_f
+b_f w_og b_og w_out`` (mLSTM) or ``w_{i,f,z,o} b_{i,f,z,o} r_{i,f,z,o}
+w_out`` (sLSTM); a cross-attention layer adds ``cross_norm`` and
+``cross``'s ``wq wk wv wo``; a MoE layer's ``moe`` holds ``router w_gate
+w_up w_down`` and, for arctic, ``dense``'s SwiGLU leaves). Its cache has
+the same stacking: ``{'k', 'v'}`` for an attention position, ``{'conv',
+'h'}`` for a Mamba one, ``{'C', 'n', 'm'}`` for an mLSTM one and ``{'c',
+'n', 'h', 'm'}`` for an sLSTM one.
 ``model_params_from_reference`` and ``model_params_to_reference`` map the
 params both ways (the latter also a same-keyed gradient dict),
 ``weights_from_reference`` reads one sublayer's (a Mamba mixer's, say);
@@ -251,9 +255,10 @@ def weights_from_reference(tree_np: Dict, device=None) -> Weights:
 def cache_from_reference(cache_np: List[Dict], cfg: ModelConfig,
                          device=None) -> List[Dict[str, torch.Tensor]]:
     """The reference's cache (one dict per super-block position: {'k',
-    'v'} with leaves [R, B, S, Kh, Dh], or a Mamba layer's {'conv', 'h'}
-    with leaves [R, B, K-1, Di] and [R, B, Di, N]) as the port's per-layer
-    list."""
+    'v'} with leaves [R, B, S, Kh, Dh]; a Mamba layer's {'conv', 'h'},
+    [R, B, K-1, Di] and [R, B, Di, N]; an mLSTM layer's {'C', 'n', 'm'},
+    [R, B, H, dh, dh], [R, B, H, dh] and [R, B, H]; an sLSTM layer's {'c',
+    'n', 'h', 'm'}, each [R, B, Di]) as the port's per-layer list."""
     dev = _device.resolve(device)
     period = cfg.block_period
     out = []
@@ -266,12 +271,12 @@ def cache_from_reference(cache_np: List[Dict], cfg: ModelConfig,
 
 def cache_to_numpy(cache: List[Dict[str, torch.Tensor]],
                    cfg: ModelConfig) -> List[Dict[str, np.ndarray]]:
-    """The port's per-layer cache in the reference's layout."""
+    """The port's per-layer cache in the reference's layout (bfloat16
+    leaves as their float32 values)."""
     period = cfg.block_period
     out = []
     for i in range(period):
         layers = cache[i::period]
-        out.append({k: np.stack([c[k].detach().cpu().numpy()
-                                 for c in layers])
+        out.append({k: np.stack([to_numpy(c[k]) for c in layers])
                     for k in layers[0]})
     return out

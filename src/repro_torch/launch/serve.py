@@ -1,8 +1,10 @@
-"""Batched serving driver: prefill + decode with the KV cache.
+"""Batched serving driver: prefill + decode with the KV / recurrent cache.
 
 The prompt is fed token by token through ``forward_decode`` (exact with
 the cache), then greedy decoding runs, as the reference's
-``repro.launch.serve`` does. Runs on CUDA unless ``device`` names another
+``repro.launch.serve`` does. A config with cross-attention gets the
+reference's stub memory (``vision_mem``, the frontend is not modelled),
+passed to every decode step. Runs on CUDA unless ``device`` names another
 device.
 
 Usage:
@@ -31,8 +33,10 @@ def greedy_generate(params: DecoderLM, cfg: ModelConfig, call: CallConfig,
                     gen: int) -> Tuple[torch.Tensor, List[torch.Tensor]]:
     """Feed the prompt (tokens [B, P] or frame_emb [B, P, D]) token by
     token, then pick the argmax token ``gen`` times; the cache must hold
-    ``prompt_len + gen`` positions. Returns (tokens [B, gen] int32, the
-    logits [B, V] of each step whose argmax was taken)."""
+    ``prompt_len + gen`` positions. Every other key of ``pbatch`` (the
+    ``vision_mem`` of a cross-attention config) goes to every step.
+    Returns (tokens [B, gen] int32, the logits [B, V] of each step whose
+    argmax was taken)."""
     max_seq = prompt_len + gen
     logits = None
     for t in range(prompt_len):
@@ -60,9 +64,11 @@ def greedy_generate(params: DecoderLM, cfg: ModelConfig, call: CallConfig,
 def serve(arch: str, *, reduced: bool = True, batch: int = 4,
           prompt_len: int = 16, gen: int = 32, seed: int = 0,
           greedy: bool = True, verbose: bool = True, device=None) -> Dict:
-    """Random weights and a random prompt from ``seed``, prefill, greedy
-    decode. Returns {"tokens": [batch, gen] numpy int32, "seconds": wall
-    time of prefill and decode, synchronized}."""
+    """Random weights, a random prompt and, for a cross-attention config,
+    the stub memory 0.02 * N(0, 1) [batch, n_mem_tokens, d_model], all
+    from ``seed``; prefill, greedy decode. Returns {"tokens": [batch, gen]
+    numpy int32, "seconds": wall time of prefill and decode,
+    synchronized}."""
     dev = _device.resolve(device)
     cfg = get_config(arch)
     if reduced:
@@ -82,6 +88,10 @@ def serve(arch: str, *, reduced: bool = True, batch: int = 4,
     else:
         pbatch["frame_emb"] = 0.02 * torch.randn(
             (batch, prompt_len, cfg.d_model), generator=rng, device=dev)
+    if cfg.cross_attn is not None:
+        pbatch["vision_mem"] = 0.02 * torch.randn(
+            (batch, cfg.cross_attn.n_mem_tokens, cfg.d_model),
+            generator=rng, device=dev)
 
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)

@@ -1,13 +1,15 @@
-"""Core layers of the dense decoder LM: RMSNorm, RoPE, GQA attention
-(dense, chunked online-softmax, flash kernel), SwiGLU MLP. Plain PyTorch;
-the hand-written kernels are selected through ``CallConfig``, as the
-reference (``repro.models.layers``) selects its Pallas kernels:
+"""Core layers of the decoder LM: RMSNorm, RoPE, GQA attention (dense,
+chunked online-softmax, flash kernel; self and cross), SwiGLU MLP.
+Plain PyTorch; the hand-written kernels are selected through
+``CallConfig``, as the reference (``repro.models.layers``) selects its
+Pallas kernels:
 
   ``use_pallas_norm``           -> ``kernels/rmsnorm`` (every ``rms_norm``);
   ``attention_impl="pallas"``   -> ``kernels/flash_attention`` for full
                                    causal self-attention (the prefill);
                                    every other attention (decode with its
-                                   KV cache) takes the chunked path.
+                                   KV cache, cross-attention) takes the
+                                   chunked path.
 
 ``CallConfig.kernel_backend`` picks the kernels' backend ("auto": the CUDA
 kernel for CUDA tensors, the plain version for CPU tensors; "ref"; "cuda").
@@ -372,7 +374,7 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 # ---------------------------------------------------------------------------
-# attention layer (self), with KV cache for decode
+# attention layers (self, with KV cache for decode; cross)
 # ---------------------------------------------------------------------------
 
 class Weights(nn.Module):
@@ -393,19 +395,21 @@ def normal(gen: torch.Generator, shape, std: float, dtype,
 
 
 def init_attention(cfg: ModelConfig, gen: torch.Generator,
-                   dtype=torch.float32, device=None) -> Weights:
+                   dtype=torch.float32, device=None,
+                   cross: bool = False) -> Weights:
     """The reference's shapes and scales: wq [d, q_dim], wk/wv [d, kv_dim]
     ~ N(0, 1/d), wo [q_dim, d] ~ N(0, 1/q_dim); zero bq/bk/bv with
-    qkv_bias, unit q_norm/k_norm [Dh] with qk_norm."""
+    qkv_bias, unit q_norm/k_norm [Dh] with qk_norm, neither for a
+    cross-attention layer (``cross``)."""
     d, qd, kvd = cfg.d_model, cfg.q_dim, cfg.kv_dim
     w = {"wq": normal(gen, (d, qd), d ** -0.5, dtype, device),
          "wk": normal(gen, (d, kvd), d ** -0.5, dtype, device),
          "wv": normal(gen, (d, kvd), d ** -0.5, dtype, device),
          "wo": normal(gen, (qd, d), qd ** -0.5, dtype, device)}
-    if cfg.qkv_bias:
+    if cfg.qkv_bias and not cross:
         for name, n in (("bq", qd), ("bk", kvd), ("bv", kvd)):
             w[name] = torch.zeros((n,), dtype=dtype, device=device)
-    if cfg.qk_norm:
+    if cfg.qk_norm and not cross:
         for name in ("q_norm", "k_norm"):
             w[name] = torch.ones((cfg.head_dim,), dtype=dtype, device=device)
     return Weights(**w)
@@ -463,6 +467,23 @@ def self_attention(p: Weights, x: torch.Tensor, *, cfg: ModelConfig,
         out = attention_core(q, k, v, causal=True, call=call)
     out = out.reshape(b, s, h * dh)
     return out @ p.wo, new_cache
+
+
+def cross_attention(p: Weights, x: torch.Tensor, mem: torch.Tensor, *,
+                    cfg: ModelConfig, call: CallConfig) -> torch.Tensor:
+    """x: [B,S,D] attends to mem: [B,M,D] (the stub modality embeddings),
+    as the reference's ``cross_attention`` (``layers.py:388-396``): no
+    RoPE, no mask, no bias or qk-norm. Under "pallas" and "chunked" it
+    takes the padded ``chunked_attention`` (M = 1601 is a multiple of no
+    chunk; the flash kernel serves causal self-attention only), under
+    "dense" ``dense_attention``. Decode re-projects ``mem`` every step."""
+    b, s, _ = x.shape
+    h, kh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = (x @ p.wq).reshape(b, s, h, dh)
+    k = (mem @ p.wk).reshape(b, -1, kh, dh)
+    v = (mem @ p.wv).reshape(b, -1, kh, dh)
+    out = attention_core(q, k, v, causal=False, call=call)
+    return out.reshape(b, s, h * dh) @ p.wo
 
 
 # ---------------------------------------------------------------------------

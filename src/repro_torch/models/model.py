@@ -1,8 +1,10 @@
-"""Decoder LM composition: embed -> layers -> norm -> head, for the dense
-family (every layer an ``attn`` mixer with a dense SwiGLU MLP), the MoE
-family (a MoE MLP in place of the dense one, ``models/moe.py``) and the
-hybrid (``mamba`` mixers with ``attn`` between them and MoE every other
-layer, as jamba interleaves them).
+"""Decoder LM composition: embed -> layers -> norm -> head, for every
+family of the reference: dense (every layer an ``attn`` mixer with a dense
+SwiGLU MLP), MoE (a MoE MLP in place of the dense one, ``models/moe.py``),
+the hybrid (``mamba`` mixers with ``attn`` between them and MoE every
+other layer, as jamba interleaves them), xLSTM (``mlstm`` mixers with an
+``slstm`` every eighth layer, no MLP) and the vision LM (``attn`` layers,
+every fifth with a cross-attention sublayer over ``batch["vision_mem"]``).
 
 The reference stacks parameters ``[R, ...]`` over repeats of a super-block
 and scans over them; the port holds one module per layer in
@@ -16,12 +18,10 @@ CUDA and raises without a card):
   forward_decode(params, cfg, call, batch, cache, pos) -> (logits, cache)
   loss_fn(params, cfg, call, batch)                    -> (loss, parts)
 
-The mlstm and slstm mixers and cross-attention layers raise
-``NotImplementedError`` naming their ROADMAP item. As in the reference
-(``model.py:173,267``), a Mamba layer of the model scans with the chunked
-scan (whose custom backward keeps only chunk-start states), not the
-ssm_scan kernel; ``ssm.mamba_forward(use_kernel=True)`` is the kernel's
-entry point.
+As in the reference (``model.py:173,267``), a Mamba layer of the model
+scans with the chunked scan (whose custom backward keeps only chunk-start
+states), not the ssm_scan kernel; ``ssm.mamba_forward(use_kernel=True)``
+is the kernel's entry point.
 """
 from __future__ import annotations
 
@@ -35,32 +35,14 @@ from repro_torch import device as _device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import ssm
 from repro_torch.models.moe import init_moe, moe_mlp
-from repro_torch.models.layers import (CallConfig, normal,
+from repro_torch.models.layers import (CallConfig, cross_attention, normal,
                                        init_attention, init_mlp, rms_norm,
                                        self_attention, swiglu)
 
-# mixer kinds the port runs
-MIXERS = ("attn", "mamba")
-# layer features of the reference that the port does not have yet
-_NOT_PORTED = {
-    "mlstm": "the mLSTM mixer (ROADMAP A17.4)",
-    "slstm": "the sLSTM mixer (ROADMAP A17.4)",
-    "cross": "cross-attention layers (ROADMAP A17.6)",
-}
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError for a config with a layer the port cannot
-    run yet."""
-    for i, kind in enumerate(cfg.layer_kinds()):
-        what = None
-        if kind not in MIXERS:
-            what = _NOT_PORTED.get(kind, kind)
-        elif cfg.layer_has_cross_attn(i):
-            what = _NOT_PORTED["cross"]
-        if what is not None:
-            raise NotImplementedError(
-                f"{cfg.name}: layer {i} needs {what}, which is not ported")
+# the mixer kinds of ``ModelConfig.layer_kinds``
+MIXERS = ("attn", "mamba", "mlstm", "slstm")
+_INIT_MIXER = {"attn": init_attention, "mamba": ssm.init_mamba,
+               "mlstm": ssm.init_mlstm, "slstm": ssm.init_slstm}
 
 
 # ---------------------------------------------------------------------------
@@ -68,22 +50,27 @@ def check_supported(cfg: ModelConfig) -> None:
 # ---------------------------------------------------------------------------
 
 class Layer(nn.Module):
-    """One decoder layer: norm1, the mixer of its ``kind`` ("attn" or
-    "mamba"), and norm2 with the MoE MLP (``moe``, where
-    ``cfg.layer_has_moe``) or else, when d_ff, the SwiGLU MLP (``mlp``),
-    as the reference's ``_init_layer``."""
+    """One decoder layer, as the reference's ``_init_layer``: norm1 and the
+    mixer of its ``kind`` (one of ``MIXERS``); where
+    ``cfg.layer_has_cross_attn``, cross_norm and the cross-attention
+    sublayer (``cross``); and norm2 with the MoE MLP (``moe``, where
+    ``cfg.layer_has_moe``) or else, when d_ff, the SwiGLU MLP (``mlp``)."""
 
     def __init__(self, cfg: ModelConfig, kind: str, has_moe: bool,
-                 gen: torch.Generator, dtype=torch.float32, device=None):
+                 has_cross: bool, gen: torch.Generator, dtype=torch.float32,
+                 device=None):
         super().__init__()
+        if kind not in MIXERS:
+            raise ValueError(kind)
         self.kind = kind
         self.has_moe = has_moe
         ones = dict(dtype=dtype, device=device)
         self.norm1 = nn.Parameter(torch.ones((cfg.d_model,), **ones))
-        if kind == "mamba":
-            self.mixer = ssm.init_mamba(cfg, gen, dtype, device)
-        else:
-            self.mixer = init_attention(cfg, gen, dtype, device)
+        self.mixer = _INIT_MIXER[kind](cfg, gen, dtype, device)
+        self.cross = None
+        if has_cross:
+            self.cross_norm = nn.Parameter(torch.ones((cfg.d_model,), **ones))
+            self.cross = init_attention(cfg, gen, dtype, device, cross=True)
         if has_moe:
             self.norm2 = nn.Parameter(torch.ones((cfg.d_model,), **ones))
             self.moe = init_moe(cfg, gen, dtype, device)
@@ -100,7 +87,6 @@ class DecoderLM(nn.Module):
     def __init__(self, cfg: ModelConfig, gen: torch.Generator,
                  dtype=torch.float32, device=None):
         super().__init__()
-        check_supported(cfg)
         self.cfg = cfg
         d = cfg.d_model
         self.final_norm = nn.Parameter(torch.ones((d,), dtype=dtype,
@@ -112,7 +98,8 @@ class DecoderLM(nn.Module):
             self.head = nn.Parameter(
                 normal(gen, (d, cfg.vocab), d ** -0.5, dtype, device))
         self.layers = nn.ModuleList(
-            Layer(cfg, kind, cfg.layer_has_moe(i), gen, dtype, device)
+            Layer(cfg, kind, cfg.layer_has_moe(i), cfg.layer_has_cross_attn(i),
+                  gen, dtype, device)
             for i, kind in enumerate(cfg.layer_kinds()))
 
 
@@ -120,8 +107,9 @@ def init_params(cfg: ModelConfig, key: Union[int, torch.Generator] = 0,
                 dtype=torch.float32, device=None) -> DecoderLM:
     """Random weights with the reference's shapes and scales
     (``model.py:61-83``): embed ~ N(0, 0.02²), head ~ N(0, 1/d), the
-    layers as ``init_attention`` / ``ssm.init_mamba`` / ``init_moe`` /
-    ``init_mlp``, norms at one. ``key`` is
+    layers as ``init_attention`` / ``ssm.init_{mamba,mlstm,slstm}`` /
+    ``init_attention(cross=True)`` / ``init_moe`` / ``init_mlp``, norms at
+    one. ``key`` is
     an int seed or a ``torch.Generator`` on ``device``. The values are the
     port's own draws, not JAX's."""
     dev = _device.resolve(device)
@@ -141,20 +129,26 @@ def param_count_actual(params: DecoderLM) -> int:
 # ---------------------------------------------------------------------------
 
 def _apply_layer(cfg: ModelConfig, call: CallConfig, lp: Layer,
-                 x: torch.Tensor, *, positions, cache: Optional[dict]
+                 x: torch.Tensor, *, positions, mem: Optional[torch.Tensor],
+                 cache: Optional[dict]
                  ) -> Tuple[torch.Tensor, Optional[dict], torch.Tensor]:
     """Returns (x, the layer's new cache or None, its MoE MLP's aux loss
     or, without MoE, None)."""
     h = rms_norm(x, lp.norm1, cfg.norm_eps, call)
-    if lp.kind == "mamba":
-        if cache is not None:
-            out, new_cache = ssm.mamba_decode(lp.mixer, h, cache, cfg=cfg)
-        else:
-            out, new_cache = ssm.mamba_forward(lp.mixer, h, cfg=cfg), None
-    else:
+    if lp.kind == "attn":
         out, new_cache = self_attention(lp.mixer, h, cfg=cfg, call=call,
                                         positions=positions, cache=cache)
+    elif cache is not None:
+        out, new_cache = _DECODE[lp.kind](lp.mixer, h, cache, cfg=cfg)
+    else:
+        out, new_cache = _FORWARD[lp.kind](lp.mixer, h, cfg=cfg), None
     x = x + out
+    if lp.cross is not None:
+        if mem is None:
+            raise ValueError(f"{cfg.name}: a cross-attention layer needs "
+                             "batch['vision_mem'] [B, M, D]")
+        hc = rms_norm(x, lp.cross_norm, cfg.norm_eps, call)
+        x = x + cross_attention(lp.cross, hc, mem, cfg=cfg, call=call)
     aux = None
     if lp.has_moe:
         h2 = rms_norm(x, lp.norm2, cfg.norm_eps, call)
@@ -166,17 +160,25 @@ def _apply_layer(cfg: ModelConfig, call: CallConfig, lp: Layer,
     return x, new_cache, aux
 
 
+_FORWARD = {"mamba": ssm.mamba_forward, "mlstm": ssm.mlstm_forward,
+            "slstm": ssm.slstm_forward}
+_DECODE = {"mamba": ssm.mamba_decode, "mlstm": ssm.mlstm_decode,
+           "slstm": ssm.slstm_decode}
+
+
 # ---------------------------------------------------------------------------
 # forward (train / prefill)
 # ---------------------------------------------------------------------------
 
 def _embed(params: DecoderLM, cfg: ModelConfig, call: CallConfig,
-           batch: Dict) -> torch.Tensor:
-    if batch.get("vision_mem") is not None:
-        raise NotImplementedError(_NOT_PORTED["cross"] + " is not ported")
+           batch: Dict) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """(x, mem): the token embeddings (or ``frame_emb``) and the optional
+    ``vision_mem`` [B, M, D], both cast to ``call.compute_dtype``."""
     x = params.embed[batch["tokens"]] if cfg.embed_inputs \
         else batch["frame_emb"]
-    return x.to(call.compute_dtype)
+    mem = batch.get("vision_mem")
+    return x.to(call.compute_dtype), (
+        None if mem is None else mem.to(call.compute_dtype))
 
 
 def _head(params: DecoderLM, cfg: ModelConfig,
@@ -187,17 +189,18 @@ def _head(params: DecoderLM, cfg: ModelConfig,
 
 def forward_train(params: DecoderLM, cfg: ModelConfig, call: CallConfig,
                   batch: Dict) -> Tuple[torch.Tensor, torch.Tensor]:
-    """batch: tokens [B,S] (or frame_emb [B,S,D]). Returns (logits
-    [B,S,V] fp32, aux_loss: a float32 scalar, the sum of the MoE layers'
-    aux losses). Under ``call.remat`` and autograd each layer is
-    recomputed in the backward pass (``torch.utils.checkpoint``)."""
-    x = _embed(params, cfg, call, batch)
+    """batch: tokens [B,S] (or frame_emb [B,S,D]), vision_mem [B,M,D]
+    where the config has cross-attention. Returns (logits [B,S,V] fp32,
+    aux_loss: a float32 scalar, the sum of the MoE layers' aux losses).
+    Under ``call.remat`` and autograd each layer is recomputed in the
+    backward pass (``torch.utils.checkpoint``)."""
+    x, mem = _embed(params, cfg, call, batch)
     positions = torch.arange(x.shape[1], device=x.device)
     period = cfg.block_period
 
-    def layer(lp, x):
+    def layer(lp, x, mem):
         x, _, aux = _apply_layer(cfg, call, lp, x, positions=positions,
-                                 cache=None)
+                                 mem=mem, cache=None)
         return x, aux
 
     # as the reference: each super-block's aux summed in layer order (its
@@ -205,9 +208,9 @@ def forward_train(params: DecoderLM, cfg: ModelConfig, call: CallConfig,
     block_aux: Dict[int, torch.Tensor] = {}
     for i, lp in enumerate(params.layers):
         if call.remat and torch.is_grad_enabled():
-            x, aux = checkpoint(layer, lp, x, use_reentrant=False)
+            x, aux = checkpoint(layer, lp, x, mem, use_reentrant=False)
         else:
-            x, aux = layer(lp, x)
+            x, aux = layer(lp, x, mem)
         if aux is not None:
             r = i // period
             block_aux[r] = block_aux[r] + aux if r in block_aux else aux
@@ -247,16 +250,21 @@ def loss_fn(params: DecoderLM, cfg: ModelConfig, call: CallConfig,
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
                dtype=torch.bfloat16, device=None) -> List[dict]:
     """One cache per layer: {'k', 'v'} of [batch, max_seq, Kh, Dh] zeros for
-    an attention layer, ``ssm.mamba_init_state`` for a Mamba layer (the
-    reference stacks them [R, ...] per super-block position;
-    ``convert.cache_to_numpy`` gives that layout)."""
-    check_supported(cfg)
+    an attention layer, ``ssm.{mamba,mlstm,slstm}_init_state`` for the
+    others (the reference stacks them [R, ...] per super-block position;
+    ``convert.cache_to_numpy`` gives that layout). Cross-attention caches
+    nothing: decode re-projects the memory every step, as the reference
+    does."""
     dev = _device.resolve(device)
     shape = (batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
+    states = {"mamba": ssm.mamba_init_state, "mlstm": ssm.mlstm_init_state,
+              "slstm": ssm.slstm_init_state}
 
     def one(kind):
-        if kind == "mamba":
-            return ssm.mamba_init_state(cfg, batch, dtype, dev)
+        if kind in states:
+            return states[kind](cfg, batch, dtype, dev)
+        if kind != "attn":
+            raise ValueError(kind)
         return {"k": torch.zeros(shape, dtype=dtype, device=dev),
                 "v": torch.zeros(shape, dtype=dtype, device=dev)}
 
@@ -267,21 +275,23 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
 def forward_decode(params: DecoderLM, cfg: ModelConfig, call: CallConfig,
                    batch: Dict, cache: List[dict], pos: int
                    ) -> Tuple[torch.Tensor, List[dict]]:
-    """One decode step. batch: tokens [B] (or frame_emb [B,1,D]). pos: the
-    int position being written, in [0, max_seq) (a position outside raises;
+    """One decode step. batch: tokens [B] (or frame_emb [B,1,D]), and
+    vision_mem [B,M,D] where the config has cross-attention. pos: the int
+    position being written, in [0, max_seq) (a position outside raises;
     the reference would clamp it). An attention layer's cache is updated
-    in place, a Mamba layer's is replaced by its new state: use the
-    returned list. Returns (logits [B,V] fp32, cache)."""
+    in place, a recurrent layer's (Mamba, mLSTM, sLSTM) is replaced by its
+    new state: use the returned list. Returns (logits [B,V] fp32, cache)."""
     if len(cache) != cfg.n_layers:
         raise ValueError(f"cache has {len(cache)} layers, the config "
                          f"{cfg.n_layers}")
     if cfg.embed_inputs:
         batch = dict(batch, tokens=batch["tokens"][:, None])
-    x = _embed(params, cfg, call, batch)
+    x, mem = _embed(params, cfg, call, batch)
     pos = int(pos)
     new_cache = []
     for lp, lc in zip(params.layers, cache):
-        x, nc, _ = _apply_layer(cfg, call, lp, x, positions=pos, cache=lc)
+        x, nc, _ = _apply_layer(cfg, call, lp, x, positions=pos, mem=mem,
+                                cache=lc)
         new_cache.append(nc)
     x = rms_norm(x, params.final_norm, cfg.norm_eps, call)
     return _head(params, cfg, x)[:, 0], new_cache

@@ -1,8 +1,8 @@
-"""The Mamba mixer (the reference's ``repro.models.ssm``, Mamba half):
-``init_mamba``, ``mamba_forward`` (train / prefill), ``mamba_init_state``
-and ``mamba_decode``, in plain PyTorch, with the selective scan either as
-the chunked scan below or, under ``use_kernel``, through
-``kernels/ssm_scan`` (the CUDA kernel on a card).
+"""The SSM mixers of the reference's ``repro.models.ssm``, each as
+``init_*``, ``*_forward`` (train / prefill), ``*_init_state`` and
+``*_decode``, in plain PyTorch: Mamba (its selective scan either as the
+chunked scan below or, under ``use_kernel``, through ``kernels/ssm_scan``,
+the CUDA kernel on a card), and xLSTM's mLSTM and sLSTM.
 
 The chunked scan runs the recurrence ``h_t = a_t h_{t-1} + b_t`` chunk by
 chunk, and within a chunk as a log-step doubling scan on ``[B, L, Di, N]``
@@ -17,7 +17,16 @@ backward (``_sel_bwd``) recomputes each chunk's states and runs the
 reversed scan for dh, so training never holds [B, S, Di, N]. The kernel
 route has no backward and refuses autograd (``layers.refuse_grad``).
 
-Not ported here: the mLSTM / sLSTM mixers (ROADMAP A17.4).
+The mLSTM (matrix memory) forward is the reference's chunked linear
+attention with log-space gates: a Python loop over S / L chunks carrying
+C [B, H, dh, dh], n [B, H, dh] and the stabiliser m [B, H] in fp32, each
+chunk's decay-weighted [L, L] scores contracted with q·k first and then
+with v (never a [B, L, L, H, dh] tensor). The sLSTM is the reference's
+sequential scan, a Python loop over S; its four recurrent head mixings
+``einsum("bhe,hef->bhf")`` run as one batched product over the heads with
+the four r matrices side by side, and the loop carries its state heads
+first ([H, B, dh]) so that the product needs no copy a step. Neither has
+a kernel: the reference has no Pallas kernel for them.
 """
 from __future__ import annotations
 
@@ -262,3 +271,254 @@ def mamba_decode(p: Weights, x: torch.Tensor, state: Dict[str, torch.Tensor],
     y = torch.einsum("bin,bn->bi", h, C[:, 0].float()).to(x.dtype)
     y = (y + xc[:, 0] * p.D)[:, None] * F.silu(z)
     return y @ p.w_out, {"conv": win[:, 1:], "h": h}
+
+
+# ===========================================================================
+# mLSTM (xLSTM matrix memory): chunked linear attention with log-space gates
+# ===========================================================================
+
+def init_mlstm(cfg: ModelConfig, gen: torch.Generator, dtype=torch.float32,
+               device=None) -> Weights:
+    """The reference's shapes and scales (``ssm.py:259-275``), Di = 2d:
+    wq, wk, wv, w_og [d, Di] and w_i, w_f [d, H] ~ N(0, 1/d), b_i 0, b_f 3
+    (the forget gate open at init), b_og 0, w_out [Di, d] ~ N(0, 1/Di)."""
+    d = cfg.d_model
+    di, h = 2 * d, cfg.n_heads
+    kw = dict(dtype=dtype, device=device)
+    return Weights(
+        wq=normal(gen, (d, di), d ** -0.5, dtype, device),
+        wk=normal(gen, (d, di), d ** -0.5, dtype, device),
+        wv=normal(gen, (d, di), d ** -0.5, dtype, device),
+        w_i=normal(gen, (d, h), d ** -0.5, dtype, device),
+        b_i=torch.zeros((h,), **kw),
+        w_f=normal(gen, (d, h), d ** -0.5, dtype, device),
+        b_f=torch.full((h,), 3.0, **kw),
+        w_og=normal(gen, (d, di), d ** -0.5, dtype, device),
+        b_og=torch.zeros((di,), **kw),
+        w_out=normal(gen, (di, d), di ** -0.5, dtype, device))
+
+
+def _sqrt_dh(dh: int, dtype: torch.dtype) -> float:
+    """sqrt(float32(dh)) rounded to ``dtype``, as the reference's
+    ``jnp.sqrt(jnp.float32(dh)).astype(x.dtype)`` (a Python float divisor
+    would enter a bf16 division unrounded)."""
+    root = torch.sqrt(torch.tensor(float(dh), dtype=torch.float32))
+    return float(root.to(dtype))
+
+
+def _mlstm_gates(p: Weights, x: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(log i, log f) [B, S, H] in fp32: the exponential input gate's
+    pre-activation and the log sigmoid of the forget gate's (<= 0)."""
+    log_i = (x @ p.w_i).float() + p.b_i
+    f_raw = (x @ p.w_f).float() + p.b_f
+    return log_i, F.logsigmoid(f_raw)
+
+
+def mlstm_forward(p: Weights, x: torch.Tensor, *,
+                  cfg: ModelConfig) -> torch.Tensor:
+    """Chunked mLSTM, x: [B,S,D] -> [B,S,D]; S must be a multiple of
+    L = min(cfg.ssm.chunk, S) (the reference asserts it)."""
+    bsz, s, d = x.shape
+    h, di = cfg.n_heads, 2 * d
+    dh = di // h
+    L = min(cfg.ssm.chunk, s)
+    if s % L:
+        raise ValueError(f"mlstm_forward: S = {s} is not a multiple of the "
+                         f"chunk {L}")
+    dev = x.device
+    q = (x @ p.wq).reshape(bsz, s, h, dh)
+    k = (x @ p.wk).reshape(bsz, s, h, dh) / _sqrt_dh(dh, x.dtype)
+    v = (x @ p.wv).reshape(bsz, s, h, dh)
+    log_i, log_f = _mlstm_gates(p, x)                          # [B,S,H]
+    C = torch.zeros((bsz, h, dh, dh), dtype=torch.float32, device=dev)
+    n = torch.zeros((bsz, h, dh), dtype=torch.float32, device=dev)
+    m = torch.full((bsz, h), -1e30, dtype=torch.float32, device=dev)
+    causal = torch.ones((L, L), dtype=torch.bool, device=dev).tril()
+    ys = []
+    for c in range(s // L):
+        sl = slice(c * L, (c + 1) * L)
+        qb, kb, vb = q[:, sl].float(), k[:, sl].float(), v[:, sl].float()
+        ib, fb = log_i[:, sl], log_f[:, sl]
+        cf = torch.cumsum(fb, dim=1)                 # cumulative log f
+        gmax = torch.cummax(ib - cf, dim=1).values
+        m_t = cf + torch.maximum(m[:, None], gmax)               # [B,L,H]
+        # intra-chunk decay-weighted scores [B, L(t), L(tau), H]
+        w_log = (cf[:, :, None] - cf[:, None, :] + ib[:, None, :, :]
+                 - m_t[:, :, None])
+        w = torch.where(causal[None, :, :, None], torch.exp(w_log), 0.0)
+        qkw = torch.einsum("blhe,bthe->blth", qb, kb) * w
+        num = torch.einsum("blth,bthe->blhe", qkw, vb)
+        den = qkw.sum(dim=2)
+        # the carried state's contribution
+        scale = torch.exp(m[:, None] + cf - m_t)                 # [B,L,H]
+        num = num + scale[..., None] * torch.einsum("blhe,bhef->blhf", qb, C)
+        den = den + scale * torch.einsum("blhe,bhe->blh", qb, n)
+        y = num / torch.maximum(den.abs(), torch.exp(-m_t))[..., None]
+        ys.append(y.to(x.dtype))
+        # the state at the chunk's end
+        m_new = m_t[:, -1]                                       # [B,H]
+        s_dec = torch.exp(m + cf[:, -1] - m_new)
+        k_w = torch.exp(cf[:, -1:] - cf + ib - m_new[:, None])   # [B,L,H]
+        C = s_dec[..., None, None] * C + torch.einsum(
+            "blhe,blhf->bhef", k_w[..., None] * kb, vb)
+        n = s_dec[..., None] * n + torch.einsum("blh,blhe->bhe", k_w, kb)
+        m = m_new
+    y = torch.cat(ys, dim=1).reshape(bsz, s, di)
+    og = torch.sigmoid(x @ p.w_og + p.b_og)
+    return (y * og) @ p.w_out
+
+
+def mlstm_init_state(cfg: ModelConfig, batch: int, dtype,
+                     device=None) -> Dict[str, torch.Tensor]:
+    """{'C': [batch, H, dh, dh], 'n': [batch, H, dh] zeros, 'm': [batch, H]
+    at -1e30}, all fp32 (``dtype`` is not used, as in the reference)."""
+    h = cfg.n_heads
+    dh = 2 * cfg.d_model // h
+    kw = dict(dtype=torch.float32, device=device)
+    return {"C": torch.zeros((batch, h, dh, dh), **kw),
+            "n": torch.zeros((batch, h, dh), **kw),
+            "m": torch.full((batch, h), -1e30, **kw)}
+
+
+def mlstm_decode(p: Weights, x: torch.Tensor, state: Dict[str, torch.Tensor],
+                 *, cfg: ModelConfig
+                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """x: [B,1,D] -> (y [B,1,D], new state): the recurrent form. The state
+    passed in is not changed."""
+    bsz, _, d = x.shape
+    h, di = cfg.n_heads, 2 * d
+    dh = di // h
+    q = (x @ p.wq).reshape(bsz, h, dh).float()
+    # the reference divides by a float32 scalar here, which promotes a
+    # bf16 projection to float32 first
+    k = (x @ p.wk).reshape(bsz, h, dh).float() / _sqrt_dh(dh, torch.float32)
+    v = (x @ p.wv).reshape(bsz, h, dh).float()
+    log_i, log_f = _mlstm_gates(p, x)
+    log_i, log_f = log_i[:, 0], log_f[:, 0]                      # [B,H]
+    lfm = log_f + state["m"]
+    m_new = torch.maximum(lfm, log_i)
+    i_p = torch.exp(log_i - m_new)
+    f_p = torch.exp(lfm - m_new)
+    C = f_p[..., None, None] * state["C"] + i_p[..., None, None] * (
+        k[..., :, None] * v[..., None, :])
+    n = f_p[..., None] * state["n"] + i_p[..., None] * k
+    num = torch.einsum("bhe,bhef->bhf", q, C)
+    den = torch.einsum("bhe,bhe->bh", q, n)
+    y = num / torch.maximum(den.abs(), torch.exp(-m_new))[..., None]
+    y = y.reshape(bsz, 1, di).to(x.dtype)
+    og = torch.sigmoid(x @ p.w_og + p.b_og)
+    return (y * og) @ p.w_out, {"C": C, "n": n, "m": m_new}
+
+
+# ===========================================================================
+# sLSTM: sequential scalar LSTM with exponential gating and head mixing
+# ===========================================================================
+
+_GATES = ("i", "f", "z", "o")
+
+
+def init_slstm(cfg: ModelConfig, gen: torch.Generator, dtype=torch.float32,
+               device=None) -> Weights:
+    """The reference's shapes and scales (``ssm.py:390-402``), Di = 2d,
+    dh = Di / H: w_{i,f,z,o} [d, Di] ~ N(0, 1/d), b_f 3 and b_{i,z,o} 0,
+    r_{i,f,z,o} [H, dh, dh] ~ N(0, 1/dh), w_out [Di, d] ~ N(0, 1/Di)."""
+    d = cfg.d_model
+    di, h = 2 * d, cfg.n_heads
+    dh = di // h
+    w = {"w_out": normal(gen, (di, d), di ** -0.5, dtype, device)}
+    for g in _GATES:
+        w[f"w_{g}"] = normal(gen, (d, di), d ** -0.5, dtype, device)
+        w[f"b_{g}"] = torch.full((di,), 3.0 if g == "f" else 0.0,
+                                 dtype=dtype, device=device)
+    for g in _GATES:
+        w[f"r_{g}"] = normal(gen, (h, dh, dh), dh ** -0.5, dtype, device)
+    return Weights(**w)
+
+
+def _slstm_inputs(p: Weights, x: torch.Tensor, heads: int) -> torch.Tensor:
+    """The four gates' input projections x @ w_g + b_g, x: [B,S,D] ->
+    [S, H, B, 4, dh] (time, then heads first, as the loop reads them)."""
+    bsz, s, _ = x.shape
+    xp = torch.stack([x @ getattr(p, f"w_{g}") + getattr(p, f"b_{g}")
+                      for g in _GATES], dim=2)                  # [B,S,4,Di]
+    xp = xp.reshape(bsz, s, 4, heads, -1)
+    return xp.permute(1, 3, 0, 2, 4).contiguous()
+
+
+def _recurrent(p: Weights, dtype) -> torch.Tensor:
+    """r_{i,f,z,o} side by side, [H, dh, 4 dh], in ``dtype``."""
+    return torch.cat([getattr(p, f"r_{g}").to(dtype) for g in _GATES],
+                     dim=-1)
+
+
+def _slstm_step(r: torch.Tensor, carry, xp: torch.Tensor):
+    """One step. carry: (c, n, h, m), each [H, B, dh] (h in the
+    activations' dtype, the others fp32); r: [H, dh, 4 dh], the four
+    recurrent matrices side by side in h's dtype; xp: [H, B, 4, dh]."""
+    c, n, hh, m = carry
+    pre = xp + torch.bmm(hh, r).view(xp.shape)
+    i_raw = pre[:, :, 0].float()
+    f_raw = pre[:, :, 1].float()
+    z = torch.tanh(pre[:, :, 2].float())
+    o = torch.sigmoid(pre[:, :, 3].float())
+    lfm = F.logsigmoid(f_raw) + m
+    m_new = torch.maximum(lfm, i_raw)
+    i_p = torch.exp(i_raw - m_new)
+    f_p = torch.exp(lfm - m_new)
+    c_new = f_p * c + i_p * z
+    n_new = f_p * n + i_p
+    h_new = (o * c_new / torch.clamp(n_new, min=1.0)).to(hh.dtype)
+    return c_new, n_new, h_new, m_new
+
+
+def slstm_forward(p: Weights, x: torch.Tensor, *,
+                  cfg: ModelConfig) -> torch.Tensor:
+    """x: [B,S,D] -> [B,S,D], one step at a time from a zero state."""
+    bsz, s, d = x.shape
+    h = cfg.n_heads
+    dh = 2 * d // h
+    xp = _slstm_inputs(p, x, h)
+    r = _recurrent(p, x.dtype)
+    kw = dict(dtype=torch.float32, device=x.device)
+    zero = torch.zeros((h, bsz, dh), **kw)
+    carry = (zero, zero, torch.zeros((h, bsz, dh), dtype=x.dtype,
+                                     device=x.device),
+             torch.full((h, bsz, dh), -1e30, **kw))
+    hs = []
+    for t in range(s):
+        carry = _slstm_step(r, carry, xp[t])
+        hs.append(carry[2])
+    y = torch.stack(hs).permute(2, 0, 1, 3).reshape(bsz, s, 2 * d)
+    return y @ p.w_out
+
+
+def slstm_init_state(cfg: ModelConfig, batch: int, dtype,
+                     device=None) -> Dict[str, torch.Tensor]:
+    """{'c', 'n': zeros, 'h': zeros of ``dtype``, 'm': -1e30}, each
+    [batch, Di] (c, n, m fp32)."""
+    di = 2 * cfg.d_model
+    kw = dict(dtype=torch.float32, device=device)
+    return {"c": torch.zeros((batch, di), **kw),
+            "n": torch.zeros((batch, di), **kw),
+            "h": torch.zeros((batch, di), dtype=dtype, device=device),
+            "m": torch.full((batch, di), -1e30, **kw)}
+
+
+def slstm_decode(p: Weights, x: torch.Tensor, state: Dict[str, torch.Tensor],
+                 *, cfg: ModelConfig
+                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """x: [B,1,D] -> (y [B,1,D], new state). The state passed in is not
+    changed."""
+    bsz = x.shape[0]
+    h = cfg.n_heads
+
+    def heads(t):                                     # [B, Di] -> [H, B, dh]
+        return t.reshape(bsz, h, -1).transpose(0, 1)
+
+    carry = tuple(heads(state[k]) for k in ("c", "n", "h", "m"))
+    c, n, hh, m = _slstm_step(_recurrent(p, state["h"].dtype), carry,
+                              _slstm_inputs(p, x, h)[0])
+    new = {k: t.transpose(0, 1).reshape(bsz, -1)
+           for k, t in (("c", c), ("n", n), ("h", hh), ("m", m))}
+    return new["h"][:, None] @ p.w_out, new

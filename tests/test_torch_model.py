@@ -8,9 +8,8 @@ with the reference's weights carried across by ``convert``:
   mode): max abs difference below 1e-4;
 - a ``forward_decode`` loop: the logits of every step and the final cache
   against the reference's loop, below 1e-4;
-- param accounting and ``init_params`` shapes, for every arch the port
-  runs (dense, MoE, the Mamba hybrid); the others (the xLSTM mixers and
-  cross-attention) raise NotImplementedError naming their ROADMAP item.
+- param accounting and ``init_params`` shapes, for every arch (dense,
+  MoE, the Mamba hybrid, xLSTM and the vision model's cross-attention).
 """
 import dataclasses
 from functools import partial
@@ -42,11 +41,8 @@ CPU = "cpu"
 # chunked_attention
 IMPLS = [("dense", 512, False), ("chunked", 16, False),
          ("chunked", 512, False), ("pallas", 16, True)]
-# the archs the port runs: every family but the xLSTM mixers' and the
-# vision model's cross-attention
-RUN_ARCHS = [a for a in list_archs()
-             if jax_get_config(a).family in ("dense", "audio", "moe",
-                                             "hybrid")]
+# the archs the port runs: every one
+RUN_ARCHS = list(list_archs())
 
 
 def _calls(impl, chunk, pallas_norm):
@@ -142,17 +138,12 @@ def test_config_copies_match_reference(arch):
 
 @pytest.mark.parametrize("arch", list_archs())
 def test_init_params_shapes_and_count(arch):
-    """The archs the port runs: its init_params has param_count(cfg)
-    parameters and the reference's tree of names and shapes (the
-    reference's eval_shape tree loads into it strictly). The others raise
-    NotImplementedError naming their ROADMAP item."""
+    """Every arch: its init_params has param_count(cfg) parameters and the
+    reference's tree of names and shapes (the reference's eval_shape tree
+    loads into it strictly), and its init_cache the reference's cache
+    tree of names and shapes."""
+    assert arch in RUN_ARCHS
     cfg = get_config(arch).reduced()
-    if arch not in RUN_ARCHS:
-        with pytest.raises(NotImplementedError, match="ROADMAP A17"):
-            init_params(cfg, 0, device=CPU)
-        with pytest.raises(NotImplementedError, match="ROADMAP A17"):
-            init_cache(cfg, 1, 4, device=CPU)
-        return
     params = init_params(cfg, 0, device=CPU)
     assert param_count_actual(params) == param_count(cfg)
     shapes = jax.eval_shape(partial(jax_init_params, jax_get_config(arch)
@@ -161,11 +152,19 @@ def test_init_params_shapes_and_count(arch):
     loaded = convert.model_params_from_reference(zeros, cfg, device=CPU)
     assert ({n: t.shape for n, t in loaded.state_dict().items()}
             == {n: t.shape for n, t in params.state_dict().items()})
-    # the scales of the draws: embed ~ N(0, 0.02^2), wq ~ N(0, 1/d)
+    cache = convert.cache_to_numpy(init_cache(cfg, 2, 4, torch.float32,
+                                              device=CPU), cfg)
+    jcache = jax.eval_shape(partial(jax_init_cache, jax_get_config(arch)
+                                    .reduced(), 2, 4, jnp.float32))
+    assert [{k: v.shape for k, v in c.items()} for c in cache] == \
+        [{k: v.shape for k, v in c.items()} for c in jcache]
+    # the scales of the draws: embed ~ N(0, 0.02^2), wq (attention or
+    # mLSTM) ~ N(0, 1/d)
     if cfg.embed_inputs:
         assert abs(float(params.embed.detach().std()) - 0.02) < 0.002
-    attn = cfg.layer_kinds().index("attn")
-    wq = params.layers[attn].mixer.wq.detach()
+    first = next(i for i, k in enumerate(cfg.layer_kinds())
+                 if k in ("attn", "mlstm"))
+    wq = params.layers[first].mixer.wq.detach()
     assert abs(float(wq.std()) - cfg.d_model ** -0.5) < 0.1 * cfg.d_model ** -0.5
 
 

@@ -27,6 +27,7 @@ def _chip_smoke():
 
 
 _N_RMS = len(_chip_smoke().RMS_CASES)
+_N_XV_RMS = len(_chip_smoke().XV_RMS_CASES)
 
 
 def _need_card():
@@ -44,6 +45,31 @@ def test_rmsnorm_kernel_matches_plain(case):
     err, _ = smoke.check_rmsnorm(*smoke.RMS_CASES[case])
     assert err <= smoke.RMS_TOL[dtype], err
     assert kernel.launch_count == before + 1
+
+
+@pytest.mark.parametrize("case", range(_N_XV_RMS))
+def test_rmsnorm_kernel_at_xlstm_and_vision_shapes(case):
+    """chip_smoke.py phase 19's RMSNorm shapes: xlstm-1.3b's [8192, 2048]
+    prefill (f32, bf16) and llama-3.2-vision-11b's [4096, 4096]."""
+    _need_card()
+    smoke = _chip_smoke()
+    n, d, dtype, w_dtype = smoke.XV_RMS_CASES[case]
+    err, _ = smoke.check_rmsnorm(n, d, dtype, False, w_dtype)
+    assert err <= smoke.RMS_TOL[dtype], err
+
+
+def test_flash_kernel_at_vision_shape():
+    """llama-3.2-vision-11b's bf16 prefill, [2, 2048, 32, 8, 128] causal,
+    on the tensor-core kernel: within FLASH_TOL of the plain version and
+    its rounding twin's limit."""
+    _need_card()
+    from repro_torch.kernels.flash_attention import kernel
+    smoke = _chip_smoke()
+    before = kernel.route_counts["tc"]
+    err, _, excess, _ = smoke.check_flash(*smoke.XV_FLASH_CASE)
+    assert err <= smoke.FLASH_TOL["bfloat16"], err
+    assert excess <= 1, excess
+    assert kernel.route_counts["tc"] == before + 1
 
 
 @pytest.mark.parametrize("case", range(8))

@@ -153,7 +153,8 @@ def _jax_batches(jcfg, n, b=4, s=32, seed=3):
             for step in range(n)]
 
 
-@pytest.mark.parametrize("arch", ["smollm-135m", "dbrx-132b"])
+@pytest.mark.parametrize("arch", ["smollm-135m", "dbrx-132b",
+                                  "llama-3.2-vision-11b"])
 def test_make_train_step_matches_reference(arch):
     """5 steps of the reference's jitted train step and the port's, from
     the reference's params and batches (the reference trainer's CallConfig
@@ -320,12 +321,14 @@ def _trained(arch="jamba-1.5-large-398b"):
     return cfg, params, st
 
 
-def test_checkpoint_port_to_reference(tmp_path):
+@pytest.mark.parametrize("arch", ["jamba-1.5-large-398b", "xlstm-1.3b",
+                                  "llama-3.2-vision-11b"])
+def test_checkpoint_port_to_reference(tmp_path, arch):
     """The port's save restores in the reference (its restore with its own
     templates): every param and moment equal."""
-    cfg, params, st = _trained()
+    cfg, params, st = _trained(arch)
     ck.save(tmp_path / "ck", 7, params, st)
-    jcfg = jax_get_config("jamba-1.5-large-398b").reduced()
+    jcfg = jax_get_config(arch).reduced()
     jparams = jax_init_params(jcfg, jax.random.PRNGKey(5))
     jst = jadamw.init_opt_state(jadamw.AdamWConfig(), jparams)
     step, rp, ro = jck.restore(tmp_path / "ck", jparams, jst)
@@ -338,10 +341,12 @@ def test_checkpoint_port_to_reference(tmp_path):
         np.testing.assert_array_equal(np.asarray(a), b)
 
 
-def test_checkpoint_reference_to_port(tmp_path):
+@pytest.mark.parametrize("arch", ["arctic-480b", "xlstm-1.3b",
+                                  "llama-3.2-vision-11b"])
+def test_checkpoint_reference_to_port(tmp_path, arch):
     """The reference's save restores in the port, into its templates."""
-    jcfg = jax_get_config("arctic-480b").reduced()
-    cfg = get_config("arctic-480b").reduced()
+    jcfg = jax_get_config(arch).reduced()
+    cfg = get_config(arch).reduced()
     jparams = jax_init_params(jcfg, jax.random.PRNGKey(1))
     jopt = jadamw.AdamWConfig()
     jst = jadamw.init_opt_state(jopt, jparams)
@@ -362,23 +367,33 @@ def test_checkpoint_reference_to_port(tmp_path):
             np.testing.assert_array_equal(a, b)
 
 
-def test_quantized_opt_state_converts_both_ways():
+@pytest.mark.parametrize("arch,leaf,layers", [
+    ("smollm-135m", "mixer.wq", (0, 1)),
+    ("xlstm-1.3b", "mixer.r_f", (7,)),            # an sLSTM's [H, dh, dh]
+    ("xlstm-1.3b", "mixer.w_i", (0, 1)),          # an mLSTM gate's
+    ("llama-3.2-vision-11b", "cross.wk", (4,)),   # the cross layer's
+])
+def test_quantized_opt_state_converts_both_ways(arch, leaf, layers):
     """An int8 moment ({'q', 's'}) of a stacked block leaf maps to the
     reference's [R, ...] {'q', 's'} and back exactly."""
-    cfg = get_config("smollm-135m").reduced()
+    cfg = get_config(arch).reduced()
     params = init_params(cfg, 0, device=CPU)
     st = adamw.init_opt_state(adamw.AdamWConfig(), params)
     g = torch.Generator().manual_seed(0)
-    for slot, layer in (("m", 0), ("m", 1), ("v", 0), ("v", 1)):
-        name = f"layers.{layer}.mixer.wq"
-        w = st[slot][name]
-        st[slot][name] = {
-            "q": torch.randint(-127, 128, w.shape, dtype=torch.int8,
-                               generator=g),
-            "s": torch.rand(w.shape[:-1] + (1,), generator=g)}
+    for slot in ("m", "v"):
+        for layer in layers:
+            name = f"layers.{layer}.{leaf}"
+            w = st[slot][name]
+            st[slot][name] = {
+                "q": torch.randint(-127, 128, w.shape, dtype=torch.int8,
+                                   generator=g),
+                "s": torch.rand(w.shape[:-1] + (1,), generator=g)}
     tree = convert.opt_state_to_reference(st, cfg)
-    leaf = tree["m"]["blocks"][0]["mixer"]["wq"]
-    assert set(leaf) == {"q", "s"} and leaf["q"].shape[0] == cfg.n_layers
+    node = tree["m"]["blocks"][layers[0] % cfg.block_period]
+    for key in leaf.split("."):
+        node = node[key]
+    repeats = cfg.n_layers // cfg.block_period
+    assert set(node) == {"q", "s"} and node["q"].shape[0] == repeats
     back = convert.opt_state_from_reference(tree, params, device=CPU)
     for slot in ("m", "v"):
         for n, v in st[slot].items():
@@ -394,6 +409,23 @@ def test_train_loss_decreases():
     out = train("smollm-135m", steps=40, batch=4, seq=32, verbose=False,
                 device=CPU)
     assert out["losses"][-1] < out["losses"][0] - 0.1
+
+
+@pytest.mark.parametrize("arch", ["xlstm-1.3b", "llama-3.2-vision-11b"])
+def test_train_runs_the_new_mixers(arch):
+    """launch.train through the xLSTM mixers and cross-attention (the
+    pipeline draws the vision model's stub memory): every step committed,
+    finite losses, and every parameter moved from its initial value (each
+    one gets a gradient; the reference's AdamW moves a parameter whose
+    gradient is nonzero)."""
+    out = train(arch, steps=4, batch=2, seq=16, verbose=False, device=CPU)
+    losses = out["losses"]
+    assert len(losses) == 4 and np.isfinite(losses).all()
+    assert out["commits"] == [4]
+    start = init_params(get_config(arch).reduced(), 0, device=CPU)
+    for (name, p0), p in zip(start.named_parameters(),
+                             out["params"].parameters()):
+        assert not torch.equal(p0, p), name
 
 
 def test_train_survives_pod_crash_elastic():
