@@ -250,7 +250,30 @@ Phases, each printed as it ends; any failure exits non-zero:
               F.rms_norm's), and at depth 5 (one super-block with its
               cross layer) the bf16 logits vs a float32 forward (the
               kernels' error at most 1.5x the plain path's);
- 20. the tick programs of the whole script (captures, their seconds,
+ 20. mesh   — the mesh and sharding layer (distributed/sharding.py,
+              DTensor placements, local_map around the kernels) on a 1x1
+              ("data", "model") mesh, NCCL with one rank: (a) smollm-135m
+              at full width, 5 make_train_step steps of [8, 512] f32 dense
+              with parameters, moments and batches placed by
+              param_shardings, _opt_shardings and batch_shardings against
+              the same steps unsharded: losses and parameters within 1e-6
+              relative, whether they are bitwise and the first leaf that
+              is not, both step walls; (b) the bf16 [4, 2048] prefill with
+              the flash and RMSNorm kernels through the mesh (30 and 61
+              launches through local_map), logits bit for bit the
+              unsharded kernels', its wall beside phase 14's; (c) the dry
+              run (launch/dryrun.run_cell) of cell (a) on a fake 1x1
+              mesh: its per-device argument bytes equal the CUDA
+              allocator's requested bytes from placing params, moments
+              and batch, its FLOPs FlopCounterMode's count of a real step
+              on the card, exactly; its compute and memory terms beside
+              the measured step wall; (d) the dry run of four production
+              cells on the 16x16 mesh (256 fake ranks): smollm-135m
+              train_4k, qwen3-14b decode_32k, dbrx-132b train_4k,
+              jamba-1.5-large-398b prefill_32k: seconds, per-device
+              bytes, the roofline terms, the dominant one, whether the
+              cell fits one H100 80 GB;
+ 21. the tick programs of the whole script (captures, their seconds,
               replays, the kernels they launched), the card's line, the
               kernels line, then the result line.
 
@@ -261,6 +284,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -3720,6 +3744,307 @@ def phase_vision(results: dict) -> None:
     results["vision"] = out
 
 
+# ---------------------------------------------------------------------------
+# slice 14: the mesh (phase 20): DTensor placements on a 1x1 mesh, the dry
+# run's cost model against the card, production cells dry-run
+# ---------------------------------------------------------------------------
+
+MESH_STEPS, MESH_B, MESH_S = 5, 8, 512        # phase 20 (a), smollm-135m
+MESH_REL = 1e-6                               # (a) sharded vs unsharded
+MESH_CELLS = (("smollm-135m", "train_4k"), ("qwen3-14b", "decode_32k"),
+              ("dbrx-132b", "train_4k"),
+              ("jamba-1.5-large-398b", "prefill_32k"))
+DRYRUN_WAIT_S = 600        # (d): the longest phase 20 waits for the cells
+_DRYRUN_CELLS = """
+import json, os, sys
+os.nice(19)          # the phases' host work comes first
+from repro_torch.launch import dryrun
+for arch, shape in json.loads(sys.argv[1]):
+    rec = dryrun.run_cell(arch, shape, False, device="cuda", verbose=False)
+    print(json.dumps(rec, default=str), flush=True)
+"""
+
+
+def start_dryrun_cells():
+    """Phase 20 (d)'s dry runs of MESH_CELLS in a process of their own,
+    started with the script: host work on placeholder tensors, so it runs
+    beside the other phases, at the lowest scheduling priority. Returns (the process, the file its records
+    go to, one JSON line a cell; the process's stderr beside it)."""
+    out = ROOT / "build" / "dryrun_cells.jsonl"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               OMP_NUM_THREADS="1")
+    with open(out, "w") as f, open(f"{out}.log", "w") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-c", _DRYRUN_CELLS, json.dumps(MESH_CELLS)],
+            stdout=f, stderr=err, env=env, cwd=ROOT)
+    return proc, out
+
+
+def _first_diff(a: dict, b: dict):
+    """The first name whose tensors differ (bit for bit), or None."""
+    import torch
+    return next((n for n in a if not torch.equal(a[n], b[n])), None)
+
+
+def _full(t):
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+
+def mesh_train(cfg, mesh, steps: int, b: int, s: int) -> dict:
+    """``steps`` make_train_step steps of ``cfg`` twice from one seed-0
+    parameter set and the same batches: placed on ``mesh`` by
+    param_shardings, _opt_shardings and batch_shardings (parameters,
+    moments and the first batch placed from the CPU, the allocator's
+    requested bytes read around it), and unsharded on the card. Returns
+    losses, walls, the params' largest relative difference, the first
+    leaf that differs bit for bit, the placement's bytes and the last
+    unsharded step's FLOPs (FlopCounterMode)."""
+    import copy
+
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import DataConfig, global_batch
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.distributed.steps import make_train_step
+    from repro_torch.launch.dryrun import _opt_shardings
+    from repro_torch.models import CallConfig, init_params
+    from repro_torch.optim.adamw import AdamWConfig, init_opt_state
+
+    shape = ShapeConfig("t", "train", s, b)
+    opt = AdamWConfig(lr=1e-3, warmup_steps=20)
+    step = make_train_step(cfg, CallConfig(compute_dtype=torch.float32,
+                                           attention_impl="dense",
+                                           remat=False), opt)
+    cpu = init_params(cfg, 0, device="cpu")
+    batches = [global_batch(cfg, shape, DataConfig(), i, device="cpu")
+               for i in range(steps + 1)]
+    plain = copy.deepcopy(cpu).cuda()
+    st_plain = init_opt_state(opt, plain)
+
+    def requested():
+        torch.cuda.synchronize()
+        return (torch.cuda.memory_stats()["requested_bytes.all.current"],
+                torch.cuda.memory_allocated())
+
+    r0 = requested()
+    p_sh = sh.param_shardings(cfg, mesh, cpu)
+    state = init_opt_state(opt, cpu)
+    sharded = sh.place_params(copy.deepcopy(cpu), p_sh)
+    st_sh = sh.place_tree(state, _opt_shardings(mesh, state, p_sh))
+    b_sh = sh.batch_shardings(cfg, shape, mesh, batches[0])
+    first = sh.place_tree(batches[0], b_sh)
+    r1 = requested()
+    sync = torch.cuda.synchronize
+    out = {"loss_plain": [], "loss_mesh": [], "wall_plain": [],
+           "wall_mesh": [], "requested_bytes": r1[0] - r0[0],
+           "allocated_bytes": r1[1] - r0[1]}
+    for i in range(steps):
+        bp = {k: v.cuda() for k, v in batches[i].items()}
+        bm = first if i == 0 else sh.place_tree(batches[i], b_sh)
+        sync()
+        t0 = time.perf_counter()
+        plain, st_plain, mp = step(plain, st_plain, bp)
+        sync()
+        t1 = time.perf_counter()
+        if i == 0:
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+        sharded, st_sh, mm = step(sharded, st_sh, bm)
+        sync()
+        t2 = time.perf_counter()
+        if i == 0:
+            out["step_peak_growth"] = torch.cuda.max_memory_allocated() \
+                - base
+        out["wall_plain"].append(t1 - t0)
+        out["wall_mesh"].append(t2 - t1)
+        out["loss_plain"].append(mp["loss"].item())
+        out["loss_mesh"].append(_full(mm["loss"]).item())
+    pa = {n: q.detach() for n, q in plain.named_parameters()}
+    pm = {n: _full(q.detach()) for n, q in sharded.named_parameters()}
+    out["param_rel"] = max(
+        ((pa[n] - pm[n]).abs().max() / pa[n].abs().max().clamp(
+            min=1e-30)).item() for n in pa)
+    out["loss_rel"] = max(abs(a - b) / abs(a) for a, b in
+                          zip(out["loss_plain"], out["loss_mesh"]))
+    out["first_diff"] = _first_diff(pa, pm)
+    out["bitwise"] = out["first_diff"] is None and \
+        out["loss_plain"] == out["loss_mesh"]
+    bp = {k: v.cuda() for k, v in batches[steps].items()}
+    with FlopCounterMode(display=False) as fc:
+        step(plain, st_plain, bp)
+    out["flops"] = fc.get_total_flops()
+    out["mesh_placements"] = {n: str(q.placements) for n, q in
+                              list(sharded.named_parameters())[:3]}
+    return out
+
+
+def mesh_prefill(cfg, params, tokens, call, mesh) -> dict:
+    """The prefill through ``mesh`` (parameters and tokens placed by the
+    rules) against the unsharded forward on the same weights: logits of
+    each, the mesh run's wall and the kernels' launches in it."""
+    import copy
+
+    import torch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.models import forward_train
+
+    shape = ShapeConfig("p", "prefill", tokens.shape[1], tokens.shape[0])
+    sharded = sh.place_params(copy.deepcopy(params),
+                              sh.param_shardings(cfg, mesh, params))
+    batch = sh.place_tree({"tokens": tokens}, sh.batch_shardings(
+        cfg, shape, mesh, {"tokens": tokens}))
+    with torch.no_grad():
+        want, _ = forward_train(params, cfg, call, {"tokens": tokens})
+        forward_train(sharded, cfg, call, batch)          # first calls
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        got, _ = forward_train(sharded, cfg, call, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _counts()
+    return {"logits": _full(got), "want": want, "wall_s": wall,
+            "launches": counts}
+
+
+def phase_mesh(results: dict) -> None:
+    """(a) smollm-135m full-width training on a 1x1 mesh against the same
+    steps unsharded; (b) the bf16 kernel prefill through the mesh; (c) the
+    dry run's cost model against the card; (d) four production cells
+    dry-run on the 16x16 mesh."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import CallConfig
+
+    cfg = get_config("smollm-135m")
+    mesh = make_debug_mesh(1, 1)          # NCCL, one rank, in-process store
+    res: dict = {"mesh": f"{mesh}"}
+    # (a)
+    tr = mesh_train(cfg, mesh, MESH_STEPS, MESH_B, MESH_S)
+    log("mesh", f"(a) {cfg.name} full width, {MESH_STEPS} steps of "
+                f"[{MESH_B}, {MESH_S}] f32 dense on the 1x1 mesh vs "
+                f"unsharded: losses {tr['loss_mesh']!r} vs "
+                f"{tr['loss_plain']!r}; loss rel {tr['loss_rel']!r}, "
+                f"params rel {tr['param_rel']!r} (limit {MESH_REL}); "
+                f"bitwise {tr['bitwise']} (first leaf that differs: "
+                f"{tr['first_diff']}); step walls mesh {tr['wall_mesh']!r} "
+                f"s, unsharded {tr['wall_plain']!r} s; placements "
+                f"{tr['mesh_placements']}")
+    res["train"] = {k: v for k, v in tr.items() if k != "mesh_placements"}
+    if not (tr["loss_rel"] <= MESH_REL and tr["param_rel"] <= MESH_REL):
+        raise AssertionError(f"mesh train vs unsharded: loss rel "
+                             f"{tr['loss_rel']}, params {tr['param_rel']}")
+    # (b)
+    _, params, tokens, call = _smollm("bfloat16")
+    pf = mesh_prefill(cfg, params, tokens, call, mesh)
+    same = bool(torch.equal(pf["logits"], pf["want"]))
+    diff = (pf["logits"].float() - pf["want"].float()).abs().max().item()
+    w14 = results.get("prefill_bf16", {}).get("wall_s")
+    log("mesh", f"(b) bf16 prefill [{PREFILL_B}, {PREFILL_S}] with the "
+                f"kernels through the mesh (local_map): {pf['wall_s']!r} s "
+                f"(phase 14 unsharded median {w14!r} s); logits bitwise "
+                f"equal to the unsharded kernels' {same} (max abs {diff!r});"
+                f" launches {pf['launches']}")
+    res["prefill"] = {"wall_s": pf["wall_s"], "phase14_wall_s": w14,
+                      "bitwise": same, "max_abs": diff,
+                      "launches": pf["launches"]}
+    want_rms = 2 * cfg.n_layers + 1
+    if pf["launches"]["flash_attention"] != cfg.n_layers \
+            or pf["launches"]["rmsnorm"] != want_rms:
+        raise AssertionError(f"mesh prefill: expected {cfg.n_layers} flash "
+                             f"and {want_rms} rmsnorm launches, got "
+                             f"{pf['launches']}")
+    if not same:
+        raise AssertionError(f"mesh prefill logits differ from the "
+                             f"unsharded kernels' by {diff}")
+    del params, tokens, pf
+    dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    # (c) the dry run of cell (a) on a fake 1x1 mesh against the card
+    rec = dryrun.run_cell(cfg.name, "t", call=CallConfig(
+        compute_dtype=torch.float32, attention_impl="dense", remat=False),
+        device="cuda", mesh_shape=(1, 1),
+        shape=ShapeConfig("t", "train", MESH_S, MESH_B), verbose=False)
+    mem = rec["memory"]
+    steady = statistics.median(tr["wall_plain"][1:])
+    log("mesh", f"(c) dry run of (a) on a 1x1 mesh: argument bytes "
+                f"{mem['argument_bytes']} vs the allocator's requested "
+                f"bytes {tr['requested_bytes']} from placing params, "
+                f"moments and batch (memory_allocated grew "
+                f"{tr['allocated_bytes']}, 512-B blocks "
+                f"{mem['argument_alloc_bytes']}); FLOPs "
+                f"{rec['flops_per_device']!r} vs FlopCounterMode "
+                f"{tr['flops']!r} on the card; compute term "
+                f"{rec['compute_s']!r} s, memory term {rec['memory_s']!r} s "
+                f"(f32 67e12 FLOP/s, 3.35e12 B/s; {rec['bytes_per_device']!r}"
+                f" B), dominant {rec['dominant']}; measured step wall "
+                f"{steady!r} s (median of steps 2-{MESH_STEPS}, unsharded); "
+                f"peak of live bytes {mem['peak_bytes']} B, "
+                f"{mem['peak_bytes'] - mem['argument_bytes']} B over the "
+                f"arguments, vs max_memory_allocated's growth over the "
+                f"first sharded step {tr.get('step_peak_growth')} B; dry "
+                f"run {rec['seconds']!r} s")
+    res["cost"] = {"argument_bytes": mem["argument_bytes"],
+                   "requested_bytes": tr["requested_bytes"],
+                   "allocated_bytes": tr["allocated_bytes"],
+                   "argument_alloc_bytes": mem["argument_alloc_bytes"],
+                   "flops": rec["flops_per_device"],
+                   "flops_card": tr["flops"],
+                   "compute_s": rec["compute_s"],
+                   "memory_s": rec["memory_s"], "step_wall_s": steady,
+                   "peak_bytes": mem["peak_bytes"],
+                   "step_peak_growth": tr.get("step_peak_growth")}
+    if mem["argument_bytes"] != tr["requested_bytes"]:
+        raise AssertionError(f"dry-run argument bytes "
+                             f"{mem['argument_bytes']} != the card's "
+                             f"{tr['requested_bytes']}")
+    if rec["flops_per_device"] != tr["flops"]:
+        raise AssertionError(f"dry-run FLOPs {rec['flops_per_device']} != "
+                             f"FlopCounterMode's {tr['flops']}")
+    # (d) production cells on the 16x16 mesh (256 fake ranks), dry-run by
+    # the process start_dryrun_cells started with the script
+    proc, path = results["dryrun_cells"]
+    t0 = time.perf_counter()
+    rc = proc.wait(timeout=DRYRUN_WAIT_S)
+    log("mesh", f"(d) the dry-run process ended with {rc} "
+                f"({time.perf_counter() - t0!r} s waited for it here)")
+    recs = [json.loads(line) for line in path.read_text().splitlines()
+            if line.startswith("{")]
+    if rc != 0 or len(recs) != len(MESH_CELLS):
+        raise AssertionError(f"dry run of {MESH_CELLS}: exit {rc}, "
+                             f"{len(recs)} records; see {path}.log")
+    cells = {}
+    for (arch, shape), rec in zip(MESH_CELLS, recs):
+        cells[f"{arch}/{shape}"] = {
+            k: rec[k] for k in ("seconds", "flops_per_device",
+                                "bytes_per_device",
+                                "collective_bytes_per_device", "compute_s",
+                                "memory_s", "collective_s", "dominant",
+                                "useful_flop_ratio", "fits_h100_80gb")}
+        cells[f"{arch}/{shape}"]["memory"] = rec["memory"]
+        log("mesh", f"(d) {arch} x {shape} x 16x16: {rec['seconds']!r} s; "
+                    f"a device: arguments {rec['memory']['argument_bytes']} "
+                    f"B, outputs {rec['memory']['output_bytes']} B, peak "
+                    f"{rec['memory']['peak_bytes']} B; compute "
+                    f"{rec['compute_s']!r} s, memory {rec['memory_s']!r} s, "
+                    f"collective {rec['collective_s']!r} s "
+                    f"({rec['collectives']}); dominant {rec['dominant']}; "
+                    f"useful FLOP ratio {rec['useful_flop_ratio']!r}; fits "
+                    f"one H100 80 GB: {rec['fits_h100_80gb']}")
+    res["cells"] = cells
+    results["mesh"] = res
+
+
 def _case(cases: list, name: str) -> dict:
     return next(c for c in cases if c["case"] == name)
 
@@ -3926,7 +4251,7 @@ def main() -> int:
                                  ("decode_bf16_kernel", torch.bfloat16, 16))
                              for d in dk.HEAD_DIMS))
 
-    results: dict = {}
+    results: dict = {"dryrun_cells": start_dryrun_cells()}
     start = time.perf_counter()
 
     def timed(name, fn, *args):
@@ -3935,6 +4260,25 @@ def main() -> int:
         log("time", f"{name} {time.perf_counter() - t!r} s (run so far "
                     f"{time.perf_counter() - start!r} s)")
 
+    try:
+        run_phases(results, timed)
+    finally:
+        proc = results["dryrun_cells"][0]
+        if proc.poll() is None:                # a phase failed first
+            proc.kill()
+            proc.wait()
+    log("time", f"all phases {time.perf_counter() - start!r} s")
+
+    kernels = kernel_entries(results)
+    print(card)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def run_phases(results: dict, timed) -> None:
     timed("kernel", phase_kernel, results)
     timed("main", phase_main, results)
     timed("profile", phase_profile, results)
@@ -3957,6 +4301,7 @@ def main() -> int:
     timed("moe", phase_moe, results)
     timed("xlstm", phase_xlstm, results)
     timed("vision", phase_vision, results)
+    timed("mesh", phase_mesh, results)
     _reset_counts()
     from repro_torch.core import compile_cache
     tot = _PROGRAM_TOTALS
@@ -3967,15 +4312,6 @@ def main() -> int:
                  f"{tot['graph_kernel_launches']} kernels, "
                  f"{tot['eager_ticks']} ticks run eagerly, "
                  f"{compile_cache.programs()} programs held at the end")
-    log("time", f"all phases {time.perf_counter() - start!r} s")
-
-    kernels = kernel_entries(results)
-    print(card)
-    print(json.dumps({"kernels": kernels}))
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
-    return 0
 
 
 if __name__ == "__main__":

@@ -1,10 +1,10 @@
 """Configurations of the port (copies of the reference's jax-free configs):
 the simulator's ``SMRConfig`` and the model stack's arch registry
-(``get_config(name)`` / ``list_archs()``)."""
+(``get_config(name)`` / ``list_archs()`` / ``iter_cells()``)."""
 from __future__ import annotations
 
 import importlib
-from typing import Dict, Tuple
+from typing import Dict, Iterator, Tuple
 
 from repro_torch.configs.base import (  # noqa: F401
     SHAPES, CrossAttnConfig, ModelConfig, MoEConfig, ShapeConfig, SSMConfig,
@@ -38,7 +38,16 @@ def get_config(name: str) -> ModelConfig:
     return mod.CONFIG
 
 
+def iter_cells() -> Iterator[Tuple[ModelConfig, ShapeConfig, bool]]:
+    """All 40 (arch x shape) cells; third element = supported (False =>
+    skip)."""
+    for arch in list_archs():
+        cfg = get_config(arch)
+        for shape in SHAPES.values():
+            yield cfg, shape, shape_supported(cfg, shape)
+
+
 __all__ = ["REGIONS", "SMRConfig", "one_way_delay_ms", "SHAPES",
            "CrossAttnConfig", "ModelConfig", "MoEConfig", "ShapeConfig",
            "SSMConfig", "param_count", "shape_supported", "get_config",
-           "list_archs"]
+           "list_archs", "iter_cells"]

@@ -20,9 +20,18 @@ a ``pallas_call`` does. Training takes "dense" or "chunked"; the latter's
 
 Weights keep the reference's layout ([d_in, d_out], applied as ``x @ w``).
 As in the reference, activations and weights share one dtype.
+
+Under a mesh (``distributed/sharding.py``) parameters, batch and caches are
+DTensors and every layer runs on them as it stands: a tensor a layer builds
+for itself (RoPE's tables) is replicated onto the activations' mesh
+(``replicated``), ``constrain_act`` redistributes the activations as the
+reference's sharding constraint places them, and attention runs on each
+device's batch rows or heads through ``local_map`` (its kernel never sees a
+DTensor).
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Optional, Tuple, Union
 
@@ -32,6 +41,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import _dispatch
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.rmsnorm import ops as rmsnorm_ops
 
@@ -55,9 +65,11 @@ class CallConfig:
     gqa_expand_kv: bool = False
     # backend of the hand-written kernels: "auto" | "ref" | "cuda"
     kernel_backend: str = "auto"
-    # the reference's mesh knobs; the port runs on one device
+    # ---- sharding knobs (``constrain_act``; DTensor activations only) ----
+    # constrain activations [B, S, D] to (batch_axes, seq_axis, None)
     batch_axes: Tuple[str, ...] = ()
-    seq_axis: Optional[str] = None
+    seq_axis: Optional[str] = None          # sequence parallelism
+    # MoE expert-parallel axis for the dispatch all-to-alls (models/moe.py)
     moe_ep_axis: Optional[str] = None
     # tokens a MoE layer routes together (models/moe.py)
     moe_group_size: int = 1024
@@ -67,11 +79,35 @@ class CallConfig:
             raise ValueError(f"unknown attention_impl "
                              f"{self.attention_impl!r}; one of "
                              f"{ATTENTION_IMPLS}")
-        if (self.batch_axes or self.seq_axis is not None
-                or self.moe_ep_axis is not None):
-            raise NotImplementedError(
-                "mesh knobs (batch_axes, seq_axis, moe_ep_axis) are not "
-                "ported: the port runs on one device (ROADMAP A17.7)")
+
+
+def constrain_act(x: torch.Tensor, call: CallConfig) -> torch.Tensor:
+    """The policy's activation sharding: a DTensor ``x`` is redistributed
+    to (``batch_axes``, ``seq_axis`` where x has 3+ dims, None, ...) on its
+    own mesh. A plain tensor is returned as it is, as the reference's
+    constraint is a no-op without a mesh."""
+    if (not call.batch_axes and call.seq_axis is None) \
+            or not _dispatch.is_dtensor(x):
+        return x
+    from repro_torch.distributed.sharding import placements
+    spec: list = [None] * x.dim()
+    if call.batch_axes:
+        spec[0] = tuple(call.batch_axes)
+    if call.seq_axis is not None and x.dim() >= 3:
+        spec[1] = call.seq_axis
+    return x.redistribute(x.device_mesh, placements(tuple(spec),
+                                                   x.device_mesh))
+
+
+def replicated(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """``t``, built by a layer for itself, on ``like``'s mesh (replicated)
+    when ``like`` is a DTensor; else ``t``."""
+    if not _dispatch.is_dtensor(like):
+        return t
+    from torch.distributed.tensor import DTensor, Replicate
+    mesh = like.device_mesh
+    return DTensor.from_local(t, mesh, (Replicate(),) * mesh.ndim,
+                              run_check=False)
 
 
 def refuse_grad(what: str, *tensors: Optional[torch.Tensor]) -> None:
@@ -141,6 +177,7 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
         positions = positions[None, :]
     ang = positions[..., None].float() * freqs               # [B, S, Dh/2]
     cos, sin = torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
+    cos, sin = replicated(cos, x), replicated(sin, x)
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
@@ -356,6 +393,20 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                    causal: bool, call: CallConfig,
                    q_pos: Optional[torch.Tensor] = None,
                    kv_len: Optional[KvLen] = None) -> torch.Tensor:
+    if _dispatch.is_dtensor(q):
+        if kv_len is not None and q.shape[1] == 1 and not isinstance(
+                kv_len, torch.Tensor) and any(
+                _dispatch.shard_dim(p) == 1 for p in k.placements):
+            return _sp_decode_attention(q, k, v, int(kv_len))
+        # each device attends its own batch rows or heads; a shard of S
+        # (seq_axis) is gathered first
+        pl = flash_ops.placements(q, k)
+
+        def local(q, k, v):
+            return attention_core(q, k, v, causal=causal, call=call,
+                                  q_pos=q_pos, kv_len=kv_len)
+
+        return _dispatch.local_call(local, (q, k, v), (pl, pl, pl), pl)
     full_self = (causal and kv_len is None and q_pos is None
                  and q.shape[1] == k.shape[1])
     if call.attention_impl == "pallas" and full_self:
@@ -371,6 +422,59 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                  kv_len=kv_len)
     return dense_attention(q, k, v, causal=causal, q_pos=q_pos,
                            kv_len=kv_len)
+
+
+def _decode_partial(q, k, v, kv_len: int):
+    """One device's share of a decode step's attention over its span of
+    the cache: (out [B, 1, H, D] float32, normalised over the span; lse
+    [B, 1, H] float32, -inf where the span holds no valid key)."""
+    b, sq, h, d = q.shape
+    kh = k.shape[2]
+    logits = torch.einsum("bqkgd,btkd->bkgqt", _gqa_expand(q, kh),
+                          k).float() * _inv_sqrt(d)
+    valid = torch.arange(k.shape[1], device=q.device) < kv_len
+    logits = logits.masked_fill(~valid, float("-inf"))
+    m = logits.amax(dim=-1)
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    p = torch.exp(logits - m[..., None])
+    l = p.sum(dim=-1)                                        # [b,kh,g,q]
+    o = torch.einsum("bkgqt,btkd->bkgqd", p.to(v.dtype), v).float()
+    o = o / torch.clamp(l[..., None], min=1e-30)
+    lse = m + torch.log(l)
+    return (o.permute(0, 3, 1, 2, 4).reshape(b, sq, h, d),
+            lse.permute(0, 3, 1, 2).reshape(b, sq, h))
+
+
+def _sp_decode_attention(q, k, v, kv_len: int) -> torch.Tensor:
+    """Decode attention against a DTensor KV cache sharded on S (SP
+    decode), as the reference's sharding inserts it: each device attends
+    over its own span of S (flash-decoding's split), and the spans'
+    partial results are combined with their log-sum-exps, so the cache is
+    never gathered; only [n, B, 1, H, D] partials are reduced. Batch and
+    head shards stay as ``flash_ops.placements`` keeps them."""
+    from torch.distributed.tensor import Replicate, Shard
+    base = flash_ops.placements(q, k)
+    kv_pl = _dispatch.even_shards(k, [
+        Shard(1) if _dispatch.shard_dim(pk) == 1 else b
+        for pk, b in zip(k.placements, base)])
+    q_pl = tuple(Replicate() if _dispatch.shard_dim(p) == 1 else p
+                 for p in kv_pl)
+    out_pl = tuple(Shard(0) if _dispatch.shard_dim(p) == 1
+                   else Shard(_dispatch.shard_dim(p) + 1)
+                   if _dispatch.shard_dim(p) is not None else p
+                   for p in kv_pl)
+    start, n = _dispatch.local_span(k, 1, kv_pl)
+
+    def local(q, k, v):
+        o, lse = _decode_partial(q, k, v, max(0, min(kv_len - start, n)))
+        return o[None], lse[None]
+
+    o, lse = _dispatch.local_call(local, (q, k, v),
+                                  (q_pl, tuple(kv_pl), tuple(kv_pl)),
+                                  (out_pl, out_pl))
+    w = torch.exp(lse - lse.amax(dim=0))                     # [n,B,1,H]
+    out = (o * w[..., None]).sum(dim=0) / w.sum(dim=0)[..., None]
+    return out.to(q.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -415,6 +519,24 @@ def init_attention(cfg: ModelConfig, gen: torch.Generator,
     return Weights(**w)
 
 
+def _heads(t: torch.Tensor, n: int, dh: int) -> torch.Tensor:
+    """[B, S, n*dh] -> [B, S, n, dh]. A DTensor whose last dim is sharded
+    more ways than its n heads split evenly (kv_dim = 32 over a 4-wide
+    "model" axis with 2 KV heads, say) is gathered on that dim first: its
+    shards would cut heads apart."""
+    if _dispatch.is_dtensor(t):
+        last = t.dim() - 1
+        ways = math.prod(t.device_mesh.size(m)
+                         for m, q in enumerate(t.placements)
+                         if _dispatch.shard_dim(q) == last)
+        if n % ways:
+            from torch.distributed.tensor import Replicate
+            t = t.redistribute(placements=tuple(
+                Replicate() if _dispatch.shard_dim(q) == last else q
+                for q in t.placements))
+    return t.reshape(t.shape[0], t.shape[1], n, dh)
+
+
 def self_attention(p: Weights, x: torch.Tensor, *, cfg: ModelConfig,
                    call: CallConfig, positions: Union[int, torch.Tensor],
                    cache: Optional[dict] = None
@@ -431,9 +553,7 @@ def self_attention(p: Weights, x: torch.Tensor, *, cfg: ModelConfig,
     q, k, v = x @ p.wq, x @ p.wk, x @ p.wv
     if cfg.qkv_bias:
         q, k, v = q + p.bq, k + p.bk, v + p.bv
-    q = q.reshape(b, s, h, dh)
-    k = k.reshape(b, s, kh, dh)
-    v = v.reshape(b, s, kh, dh)
+    q, k, v = _heads(q, h, dh), _heads(k, kh, dh), _heads(v, kh, dh)
     if cfg.qk_norm:
         q = head_rms_norm(q, p.q_norm, cfg.norm_eps)
         k = head_rms_norm(k, p.k_norm, cfg.norm_eps)
@@ -458,8 +578,8 @@ def self_attention(p: Weights, x: torch.Tensor, *, cfg: ModelConfig,
         if not 0 <= pos < ck.shape[1]:
             raise ValueError(f"decode position {pos} outside the cache's "
                              f"{ck.shape[1]} slots")
-        ck[:, pos] = k[:, 0]
-        cv[:, pos] = v[:, 0]
+        _write_row(ck, pos, k)
+        _write_row(cv, pos, v)
         new_cache = {"k": ck, "v": cv}
         out = attention_core(q, ck, cv, causal=False, call=call,
                              kv_len=pos + 1)
@@ -467,6 +587,24 @@ def self_attention(p: Weights, x: torch.Tensor, *, cfg: ModelConfig,
         out = attention_core(q, k, v, causal=True, call=call)
     out = out.reshape(b, s, h * dh)
     return out @ p.wo, new_cache
+
+
+def _write_row(cache: torch.Tensor, pos: int, row: torch.Tensor) -> None:
+    """cache[:, pos] = row[:, 0], in place. A DTensor cache sharded on S
+    (SP decode) is written by the device that holds position ``pos``
+    alone: ``row`` is redistributed to the cache's placements with S
+    whole, and each device writes its local rows where ``pos`` falls in
+    its span of S."""
+    if not _dispatch.is_dtensor(cache):
+        cache[:, pos] = row[:, 0]
+        return
+    from torch.distributed.tensor import Replicate
+    row = row.redistribute(cache.device_mesh, tuple(
+        Replicate() if _dispatch.shard_dim(p) == 1 else p
+        for p in cache.placements)).to_local()
+    start, n = _dispatch.local_span(cache, 1)
+    if start <= pos < start + n:
+        cache.to_local()[:, pos - start] = row[:, 0]
 
 
 def cross_attention(p: Weights, x: torch.Tensor, mem: torch.Tensor, *,
@@ -479,9 +617,8 @@ def cross_attention(p: Weights, x: torch.Tensor, mem: torch.Tensor, *,
     "dense" ``dense_attention``. Decode re-projects ``mem`` every step."""
     b, s, _ = x.shape
     h, kh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = (x @ p.wq).reshape(b, s, h, dh)
-    k = (mem @ p.wk).reshape(b, -1, kh, dh)
-    v = (mem @ p.wv).reshape(b, -1, kh, dh)
+    q = _heads(x @ p.wq, h, dh)
+    k, v = _heads(mem @ p.wk, kh, dh), _heads(mem @ p.wv, kh, dh)
     out = attention_core(q, k, v, causal=False, call=call)
     return out.reshape(b, s, h * dh) @ p.wo
 

@@ -10,6 +10,11 @@ The reference stacks parameters ``[R, ...]`` over repeats of a super-block
 and scans over them; the port holds one module per layer in
 ``DecoderLM.layers`` and loops over them (``convert`` maps the two).
 
+Under a mesh the parameters, batch and caches are DTensors placed by
+``distributed/sharding.py``, and the activations are constrained
+(``layers.constrain_act``) after the embedding and after each layer, as
+the reference constrains them.
+
 Entry points (the reference's names and signatures; ``device=None`` means
 CUDA and raises without a card):
   init_params(cfg, key, dtype, device)                 -> DecoderLM
@@ -25,6 +30,7 @@ is the kernel's entry point.
 """
 from __future__ import annotations
 
+from types import SimpleNamespace
 from typing import Dict, List, Optional, Tuple, Union
 
 import torch
@@ -33,9 +39,11 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import device as _device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import _dispatch
 from repro_torch.models import ssm
 from repro_torch.models.moe import init_moe, moe_mlp
-from repro_torch.models.layers import (CallConfig, cross_attention, normal,
+from repro_torch.models.layers import (CallConfig, constrain_act,
+                                       cross_attention, normal,
                                        init_attention, init_mlp, rms_norm,
                                        self_attention, swiglu)
 
@@ -139,9 +147,13 @@ def _apply_layer(cfg: ModelConfig, call: CallConfig, lp: Layer,
         out, new_cache = self_attention(lp.mixer, h, cfg=cfg, call=call,
                                         positions=positions, cache=cache)
     elif cache is not None:
-        out, new_cache = _DECODE[lp.kind](lp.mixer, h, cache, cfg=cfg)
+        out, new_cache = _batch_local(_DECODE[lp.kind], lp.mixer, h, cache,
+                                      cfg=cfg)
+    elif lp.kind == "mamba":
+        out, new_cache = ssm.mamba_forward(lp.mixer, h, cfg=cfg), None
     else:
-        out, new_cache = _FORWARD[lp.kind](lp.mixer, h, cfg=cfg), None
+        out, new_cache = _batch_local(_FORWARD[lp.kind], lp.mixer, h,
+                                      cfg=cfg), None
     x = x + out
     if lp.cross is not None:
         if mem is None:
@@ -152,7 +164,10 @@ def _apply_layer(cfg: ModelConfig, call: CallConfig, lp: Layer,
     aux = None
     if lp.has_moe:
         h2 = rms_norm(x, lp.norm2, cfg.norm_eps, call)
-        y, aux = moe_mlp(lp.moe, h2, cfg=cfg, group_size=call.moe_group_size)
+        tok_axes = call.batch_axes + ((call.seq_axis,)
+                                      if call.seq_axis else ())
+        y, aux = moe_mlp(lp.moe, h2, cfg=cfg, ep_axis=call.moe_ep_axis,
+                         group_size=call.moe_group_size, tok_axes=tok_axes)
         x = x + y
     elif cfg.d_ff:
         h2 = rms_norm(x, lp.norm2, cfg.norm_eps, call)
@@ -160,8 +175,41 @@ def _apply_layer(cfg: ModelConfig, call: CallConfig, lp: Layer,
     return x, new_cache, aux
 
 
-_FORWARD = {"mamba": ssm.mamba_forward, "mlstm": ssm.mlstm_forward,
-            "slstm": ssm.slstm_forward}
+_FORWARD = {"mlstm": ssm.mlstm_forward, "slstm": ssm.slstm_forward}
+
+
+def _batch_local(fn, p: nn.Module, x: torch.Tensor, *state, cfg):
+    """``fn(p, x, *state, cfg=cfg)``; with DTensor activations it runs on
+    each device's batch rows through ``local_map``: the recurrent mixers
+    (the xLSTM forwards, every recurrent decode step) are batch-local,
+    so their weights and any channel shard of the state are gathered
+    first (redistributed to Replicate), x and the state keep their batch
+    shards, and the output and new state come back batch-sharded."""
+    if not _dispatch.is_dtensor(x):
+        return fn(p, x, *state, cfg=cfg)
+    from torch.distributed.tensor import Replicate
+    pl = tuple(_dispatch.even_shards(x, [
+        q if _dispatch.shard_dim(q) == 0 else Replicate()
+        for q in x.placements]))
+    rep = (Replicate(),) * len(pl)
+    names = [n for n, _ in p.named_parameters()]
+    keys = list(state[0]) if state else []
+    leaves = [state[0][k] for k in keys]
+
+    def local(x, *rest):
+        w = SimpleNamespace(**dict(zip(names, rest[:len(names)])))
+        if not state:
+            return fn(w, x, cfg=cfg)
+        out, new = fn(w, x, dict(zip(keys, rest[len(names):])), cfg=cfg)
+        return (out, *(new[k] for k in keys))
+
+    ins = (x, *(q for _, q in p.named_parameters()), *leaves)
+    out = _dispatch.local_call(
+        local, ins, (pl, *(rep,) * len(names), *(pl,) * len(leaves)),
+        (pl,) * (1 + len(leaves)) if state else pl)
+    if not state:
+        return out
+    return out[0], dict(zip(keys, out[1:]))
 _DECODE = {"mamba": ssm.mamba_decode, "mlstm": ssm.mlstm_decode,
            "slstm": ssm.slstm_decode}
 
@@ -174,11 +222,47 @@ def _embed(params: DecoderLM, cfg: ModelConfig, call: CallConfig,
            batch: Dict) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """(x, mem): the token embeddings (or ``frame_emb``) and the optional
     ``vision_mem`` [B, M, D], both cast to ``call.compute_dtype``."""
-    x = params.embed[batch["tokens"]] if cfg.embed_inputs \
+    x = _lookup(params.embed, batch["tokens"]) if cfg.embed_inputs \
         else batch["frame_emb"]
     mem = batch.get("vision_mem")
     return x.to(call.compute_dtype), (
         None if mem is None else mem.to(call.compute_dtype))
+
+
+def _lookup(embed: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """embed[tokens]. For a DTensor table sharded on V (the embed rule)
+    each device looks up the tokens that fall in its span of V, zeros for
+    the rest, and the rows are a pending sum over those devices (a
+    vocab-parallel embedding: the table is never gathered). The tokens
+    keep their batch shards on the other mesh dims; a shard of D is
+    gathered first."""
+    if not _dispatch.is_dtensor(embed):
+        return embed[tokens]
+    from torch.distributed.tensor import Partial, Replicate
+    e_pl = _dispatch.even_shards(embed, [
+        q if _dispatch.shard_dim(q) == 0 else Replicate()
+        for q in embed.placements])
+    t_pl, o_pl = [], []
+    for qe, qt in zip(e_pl, tokens.placements):
+        if _dispatch.shard_dim(qe) == 0:
+            t_pl.append(Replicate()), o_pl.append(Partial())
+        elif _dispatch.shard_dim(qt) == 0:
+            t_pl.append(qt), o_pl.append(qt)
+        else:
+            t_pl.append(Replicate()), o_pl.append(Replicate())
+    t_pl = _dispatch.even_shards(tokens, t_pl)
+    o_pl = [o if _dispatch.shard_dim(o) is None or t == o else Replicate()
+            for o, t in zip(o_pl, t_pl)]
+    v0, nv = _dispatch.local_span(embed, 0, e_pl)
+
+    def local(emb, tok):
+        idx = tok.long() - v0
+        inside = (idx >= 0) & (idx < nv)
+        rows = emb[idx.clamp(0, nv - 1)]
+        return torch.where(inside[..., None], rows, torch.zeros_like(rows))
+
+    return _dispatch.local_call(local, (embed, tokens),
+                                (tuple(e_pl), tuple(t_pl)), tuple(o_pl))
 
 
 def _head(params: DecoderLM, cfg: ModelConfig,
@@ -195,13 +279,14 @@ def forward_train(params: DecoderLM, cfg: ModelConfig, call: CallConfig,
     Under ``call.remat`` and autograd each layer is recomputed in the
     backward pass (``torch.utils.checkpoint``)."""
     x, mem = _embed(params, cfg, call, batch)
+    x = constrain_act(x, call)
     positions = torch.arange(x.shape[1], device=x.device)
     period = cfg.block_period
 
     def layer(lp, x, mem):
         x, _, aux = _apply_layer(cfg, call, lp, x, positions=positions,
                                  mem=mem, cache=None)
-        return x, aux
+        return constrain_act(x, call), aux
 
     # as the reference: each super-block's aux summed in layer order (its
     # sum from zero: 0 + a is a), then the blocks' sums added
@@ -220,6 +305,36 @@ def forward_train(params: DecoderLM, cfg: ModelConfig, call: CallConfig,
     return _head(params, cfg, x), aux
 
 
+def _pick(shifted: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """shifted[..., labels]: [B, S, V], [B, S] -> [B, S]. For a DTensor
+    with V sharded (the head is TP-sharded on V) each device picks the
+    labels that fall in its span of V and the pick is a pending sum over
+    those devices, as the reference's where-and-sum reduces: the [B, S, V]
+    logits are never gathered. Batch shards stay; any other placement of
+    V's dims is gathered first."""
+    if not _dispatch.is_dtensor(shifted):
+        return torch.gather(shifted, -1, labels[..., None])[..., 0]
+    from torch.distributed.tensor import Partial, Replicate
+    last = shifted.dim() - 1
+    pl = _dispatch.even_shards(shifted, [
+        q if _dispatch.shard_dim(q) in (0, last) else Replicate()
+        for q in shifted.placements])
+    lab = tuple(q if _dispatch.shard_dim(q) == 0 else Replicate()
+                for q in pl)
+    out = tuple(Partial() if _dispatch.shard_dim(q) == last else q
+                for q in pl)
+    v0, nv = _dispatch.local_span(shifted, last, pl)
+
+    def local(sh, lb):
+        idx = lb - v0
+        inside = (idx >= 0) & (idx < nv)
+        val = torch.gather(sh, -1, idx.clamp(0, nv - 1)[..., None])[..., 0]
+        return torch.where(inside, val, torch.zeros_like(val))
+
+    return _dispatch.local_call(local, (shifted, labels), (tuple(pl), lab),
+                                out)
+
+
 def loss_fn(params: DecoderLM, cfg: ModelConfig, call: CallConfig,
             batch: Dict) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The reference's ``loss_fn`` (``model.py:191-213``): the mean
@@ -232,13 +347,14 @@ def loss_fn(params: DecoderLM, cfg: ModelConfig, call: CallConfig,
     m = logits.amax(dim=-1, keepdim=True).detach()
     shifted = logits - m
     lse = torch.log(torch.exp(shifted).sum(dim=-1))
-    picked = torch.gather(shifted, -1, labels[..., None])[..., 0]
+    picked = _pick(shifted, labels)
     nll = lse - picked
     mask = batch.get("loss_mask")
     if mask is None:
         mask = torch.ones_like(nll)
-    nll = (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
-    zloss = 1e-4 * torch.mean((lse + m[..., 0]) ** 2)
+    nll = _dispatch.settled((nll * mask).sum()) / torch.clamp(
+        _dispatch.settled(mask.sum()), min=1.0)
+    zloss = 1e-4 * _dispatch.settled(torch.mean((lse + m[..., 0]) ** 2))
     total = nll + aux + zloss
     return total, {"nll": nll, "aux": aux, "zloss": zloss}
 

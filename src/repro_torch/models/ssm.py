@@ -36,6 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import _dispatch
 from repro_torch.kernels.ssm_scan import ops as ssm_ops
 from repro_torch.models.layers import Weights, normal, refuse_grad
 
@@ -74,6 +75,19 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor,
     """x: [B,S,Di], w: [K,Di] depthwise causal conv, as the reference's
     shifted adds (a grouped F.conv1d would go to cuDNN, which runs float32
     in TF32 by default)."""
+    if _dispatch.is_dtensor(x):
+        # channel- and batch-local: each device convolves its own rows and
+        # channels; a shard of S is gathered first
+        from torch.distributed.tensor import Replicate, Shard
+        pl = _dispatch.even_shards(x, [
+            q if _dispatch.shard_dim(q) in (0, 2) else Replicate()
+            for q in x.placements])
+        wb = [(Shard(1), Shard(0)) if _dispatch.shard_dim(q) == 2
+              else (Replicate(), Replicate()) for q in pl]
+        return _dispatch.local_call(
+            _causal_conv, (x, w, b),
+            (tuple(pl), tuple(c[0] for c in wb), tuple(c[1] for c in wb)),
+            tuple(pl))
     k, s = w.shape[0], x.shape[1]
     out = torch.zeros_like(x)
     for j in range(k):
@@ -206,6 +220,13 @@ def mamba_ssm(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
     (ROADMAP Queue C); under autograd it raises too (no backward). With no
     ``h0`` and S a multiple of ``chunk`` the scan is ``_SelectiveScan``
     (custom backward), else the padded chunked scan (plain autograd)."""
+    if _dispatch.is_dtensor(x):
+        # each device scans its own batch rows or channels (Di)
+        def local(*args):
+            return mamba_ssm(*args, chunk, h0=h0, use_kernel=use_kernel)
+
+        pl = ssm_ops.placements(x)
+        return _dispatch.local_call(local, (x, dt, B, C, A, D), pl, pl[0])
     if use_kernel:
         if h0 is not None:
             raise ValueError("use_kernel=True scans from a zero state; an h0 "
@@ -233,11 +254,82 @@ def scan_inputs(p: Weights, x: torch.Tensor):
 def mamba_forward(p: Weights, x: torch.Tensor, *, cfg: ModelConfig,
                   use_kernel: bool = False) -> torch.Tensor:
     """x: [B,S,D] -> [B,S,D]."""
+    if _dispatch.is_dtensor(x):
+        return _mamba_forward_sharded(p, x, cfg, use_kernel)
     xc, dt, B, C, A, z = scan_inputs(p, x)
     y = mamba_ssm(xc, dt, B, C, A, p.D, cfg.ssm.chunk,
                   use_kernel=use_kernel)
     y = y * F.silu(z)
     return y @ p.w_out
+
+
+def _mamba_in(x, w_in, conv_w, conv_b, w_bc, w_dt, c0: int, di: int):
+    """One device's channels [c0, c0 + c) of the mixer's input side (c =
+    conv_b's local width): xc and z for them, and its partial sums of the
+    projections that contract over the channels (B|C and dt's logit)."""
+    c = conv_b.shape[0]
+    xin = x @ w_in[:, c0:c0 + c]
+    z = x @ w_in[:, di + c0:di + c0 + c]
+    xc = F.silu(_causal_conv(xin, conv_w, conv_b))
+    return xc, z, xc @ w_bc, xc @ w_dt
+
+
+def _mamba_scan_local(xc, z, dtl, dt_bias, bc, A_log, D, chunk: int,
+                      use_kernel: bool):
+    """One device's channels of the scan and the gate: y * silu(z)."""
+    B, C = bc.chunk(2, dim=-1)
+    dt = _softplus(dtl + dt_bias)
+    y = mamba_ssm(xc, dt, B, C, -torch.exp(A_log.float()), D, chunk,
+                  use_kernel=use_kernel)
+    return y * F.silu(z)
+
+
+def _mamba_forward_sharded(p: Weights, x, cfg: ModelConfig,
+                           use_kernel: bool):
+    """``mamba_forward`` on DTensors, tensor-parallel over the channels
+    (Di) where the rules shard them (conv_b, D, A_log on "model"): each
+    device projects x onto its own channels of both halves of w_in (w_in
+    is gathered: its column shards hold whole halves, not the channels'
+    pairs), convolves and scans them (``_mamba_scan_local``, the kernel's
+    or the chunked scan), and its share of the projections that contract
+    over the channels (B|C, dt's logit, w_out) is a pending sum over the
+    channel-sharding devices. x keeps its batch shards; a shard of S is
+    gathered. Without channel shards every mesh dim runs batch-local."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    di = cfg.ssm.expand * cfg.d_model
+    xpl = _dispatch.even_shards(x, [
+        q if _dispatch.shard_dim(q) == 0 else Replicate()
+        for q in x.placements])
+    mesh = x.device_mesh
+    ch = [_dispatch.shard_dim(q) == 0 and di % mesh.size(m) == 0
+          and _dispatch.shard_dim(xq) != 0
+          for m, (q, xq) in enumerate(zip(p.conv_b.placements, xpl))]
+    r, s0, s1, s2 = Replicate(), Shard(0), Shard(1), Shard(2)
+
+    def per(on_ch, on_x):
+        return tuple(on_ch if c else (on_x if _dispatch.shard_dim(q) == 0
+                                      else r) for c, q in zip(ch, xpl))
+
+    x_pl = tuple(r if c else q for c, q in zip(ch, xpl))
+    rep = tuple(r for _ in ch)
+    c0, _ = _dispatch.local_span(p.conv_b, 0, per(s0, r))
+    xc, z, bc, dtl = _dispatch.local_call(
+        lambda *a: _mamba_in(*a, c0=c0, di=di),
+        (x, p.w_in, p.conv_w, p.conv_b, p.w_bc, p.w_dt),
+        (x_pl, rep, per(s1, r), per(s0, r), per(s0, r), per(s0, r)),
+        (per(s2, s0), per(s2, s0), per(Partial(), s0), per(Partial(), s0)))
+    # B|C and dt's logit contract over every channel: settle the sums
+    bc = bc.redistribute(mesh, per(r, s0))
+    dtl = dtl.redistribute(mesh, per(r, s0))
+    y = _dispatch.local_call(
+        lambda *a: _mamba_scan_local(*a, chunk=cfg.ssm.chunk,
+                                     use_kernel=use_kernel),
+        (xc, z, dtl, p.dt_bias, bc, p.A_log, p.D),
+        (per(s2, s0), per(s2, s0), per(r, s0), per(s0, r), per(r, s0),
+         per(s0, r), per(s0, r)), per(s2, s0))
+    return _dispatch.local_call(
+        lambda y, w: y @ w, (y, p.w_out), (per(s2, s0), per(s0, r)),
+        per(Partial(), s0))
 
 
 def mamba_init_state(cfg: ModelConfig, batch: int, dtype,

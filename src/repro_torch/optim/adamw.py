@@ -9,6 +9,12 @@ by name; grads and the state's ``m`` / ``v`` are dicts with the same keys.
 and returns them with the new state. Step, learning rate and grad norm stay
 0-dim tensors on the params' device: an update reads nothing back to the
 host.
+
+DTensor parameters, gradients and moments (``distributed/sharding.py``,
+``launch/dryrun._opt_shardings``) update shard by shard: the global grad
+norm reduces over every shard, a row scale over a sharded last dim
+reduces over its shards, and each new value is redistributed to its
+slot's placements before it is stored.
 """
 from __future__ import annotations
 
@@ -18,6 +24,8 @@ from typing import Any, Dict, Mapping, Tuple, Union
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from repro_torch.kernels import _dispatch
 
 BLOCK = 256          # DP gradient-compression block (flat)
 QUANT_MIN_SIZE = 1 << 22   # quantize moments only for leaves >= 4M params
@@ -56,29 +64,59 @@ def _dq8_rows(q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     return q.float() * s
 
 
-def _quantizable(p: torch.Tensor) -> bool:
-    return p.numel() >= QUANT_MIN_SIZE and p.dim() >= 1
+def _quantizable(p: torch.Tensor, repeats: int = 1) -> bool:
+    """The reference's rule on its leaf: ``repeats`` layers of ``p``'s
+    shape stacked (a model's per-layer leaf; 1 elsewhere)."""
+    return p.numel() * repeats >= QUANT_MIN_SIZE and p.dim() >= 1
+
+
+def _repeats(params: Params) -> int:
+    """How many layers the reference stacks into one leaf of a model's
+    ``layers.*`` parameters: its quantization threshold is on that stack
+    (a per-layer router of 0.9M elements is a 32M-element leaf there)."""
+    cfg = getattr(params, "cfg", None)
+    return 1 if cfg is None else cfg.n_layers // cfg.block_period
+
+
+def _row_scale_zeros(p: torch.Tensor) -> torch.Tensor:
+    """float32 zeros [..., 1] for ``p``'s row scales; for a DTensor ``p``
+    with its placements, a shard of the last dim replicated (the
+    reference's ``_opt_shardings``: the scales' last dim is 1)."""
+    shape = p.shape[:-1] + (1,)
+    if not _dispatch.is_dtensor(p):
+        return torch.zeros(shape, dtype=torch.float32, device=p.device)
+    from torch.distributed.tensor import DTensor, Replicate
+    last = p.dim() - 1
+    local = p.to_local()
+    return DTensor.from_local(
+        torch.zeros(local.shape[:-1] + (1,), dtype=torch.float32,
+                    device=local.device),
+        p.device_mesh, tuple(Replicate() if _dispatch.shard_dim(q) == last
+                             else q for q in p.placements),
+        run_check=False, shape=shape,
+        stride=torch.empty(shape, device="meta").stride())
 
 
 def init_opt_state(cfg: AdamWConfig, params: Params) -> Dict[str, Any]:
     """{"step": int32 0, "m": {name: zeros}, "v": {name: zeros}}; a slot
     is float32 of the param's shape, or with ``quantized_state`` and a
     leaf of at least QUANT_MIN_SIZE elements {"q": int8 of its shape, "s":
-    float32 [..., 1]}."""
+    float32 [..., 1]}. A model's layer counts as the reference's stacked
+    leaf of all its super-block position's layers (``_repeats``)."""
     named = _named(params)
+    reps = _repeats(params)
 
-    def zeros_like_q(p):
-        if cfg.quantized_state and _quantizable(p):
-            return {"q": torch.zeros(p.shape, dtype=torch.int8,
-                                     device=p.device),
-                    "s": torch.zeros(p.shape[:-1] + (1,),
-                                     dtype=torch.float32, device=p.device)}
-        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    def zeros_like_q(n, p):
+        if cfg.quantized_state and _quantizable(
+                p, reps if n.startswith("layers.") else 1):
+            return {"q": torch.zeros_like(p, dtype=torch.int8),
+                    "s": _row_scale_zeros(p)}
+        return torch.zeros_like(p, dtype=torch.float32)
 
     dev = next(iter(named.values())).device
     return {"step": torch.zeros((), dtype=torch.int32, device=dev),
-            "m": {n: zeros_like_q(p) for n, p in named.items()},
-            "v": {n: zeros_like_q(p) for n, p in named.items()}}
+            "m": {n: zeros_like_q(n, p) for n, p in named.items()},
+            "v": {n: zeros_like_q(n, p) for n, p in named.items()}}
 
 
 def _load(slot) -> torch.Tensor:
@@ -87,11 +125,18 @@ def _load(slot) -> torch.Tensor:
     return slot
 
 
+def _placed(val: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """``val`` with ``like``'s placements when both are DTensors."""
+    if _dispatch.is_dtensor(like):
+        return val.redistribute(like.device_mesh, like.placements)
+    return val
+
+
 def _store(val: torch.Tensor, like):
     if isinstance(like, dict):
         q, s = _q8_rows(val)
-        return {"q": q, "s": s}
-    return val
+        return {"q": _placed(q, like["q"]), "s": _placed(s, like["s"])}
+    return _placed(val, like)
 
 
 def global_norm(grads: Mapping[str, torch.Tensor]) -> torch.Tensor:
@@ -123,7 +168,7 @@ def apply_updates(cfg: AdamWConfig, params: Params,
         v = cfg.b2 * _load(v0) + (1 - cfg.b2) * g * g
         upd = (m / b1c) / (torch.sqrt(v / b2c) + cfg.eps)
         upd = upd + cfg.weight_decay * p.float()
-        p.copy_((p.float() - lr * upd).to(p.dtype))
+        p.copy_(_placed((p.float() - lr * upd).to(p.dtype), p))
         new_m[name] = _store(m, m0)
         new_v[name] = _store(v, v0)
     opt_state = {"step": step, "m": new_m, "v": new_v}

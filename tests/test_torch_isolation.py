@@ -69,6 +69,8 @@ def test_entry_points_default_to_cuda():
     from repro_torch.configs.smr import SMRConfig
     from repro_torch.core import mandator, netsim, paxos, sporades
     from repro_torch.core.experiment import SweepSpec, run_sweep
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_debug_mesh, make_production_mesh
     from repro_torch.launch.serve import serve
     from repro_torch.models import init_cache, init_params
     cfg = SMRConfig(sim_seconds=0.1, delay_horizon_ticks=256)
@@ -84,6 +86,10 @@ def test_entry_points_default_to_cuda():
             lambda: init_params(lm, 0),
             lambda: init_cache(lm, 1, 8),
             lambda: serve("smollm-135m", batch=1, prompt_len=2, gen=2,
-                          verbose=False)):
+                          verbose=False),
+            lambda: make_production_mesh(),
+            lambda: make_debug_mesh(1, 1),
+            lambda: dryrun.run_cell("smollm-135m", "train_4k",
+                                    verbose=False)):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()

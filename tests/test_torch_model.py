@@ -174,13 +174,41 @@ def test_full_width_param_count():
     assert param_count(cfg) == 134_515_008
 
 
+MESH_KNOBS = ({"batch_axes": ("data",)}, {"seq_axis": "model"},
+              {"moe_ep_axis": "model"},
+              {"batch_axes": ("pod", "data"), "seq_axis": "model",
+               "moe_ep_axis": "model"})
+
+
 def test_mesh_knobs_raise():
-    for kw in ({"batch_axes": ("data",)}, {"seq_axis": "seq"},
-               {"moe_ep_axis": "expert"}):
-        with pytest.raises(NotImplementedError, match="ROADMAP A17"):
-            CallConfig(**kw)
+    """Every CallConfig the reference accepts is accepted, the mesh knobs
+    included (they shard DTensor activations, distributed/sharding.py);
+    what raises is an attention_impl the port does not have."""
+    for kw in MESH_KNOBS:
+        assert CallConfig(**kw) == dataclasses.replace(CallConfig(), **kw)
     with pytest.raises(ValueError, match="attention_impl"):
         CallConfig(attention_impl="flash")
+
+
+@pytest.mark.parametrize("arch", ["qwen3-14b", "dbrx-132b"])
+def test_mesh_knobs_on_plain_tensors(arch):
+    """On plain tensors the knobs change nothing (the reference's sharding
+    constraint is a no-op without a mesh): logits bitwise equal to the
+    knob-free call's, and equal to the reference's within TOL."""
+    jcfg, cfg, jparams, params, tokens = _setup(arch, 2, 32)
+    base = dict(compute_dtype=torch.float32, attention_impl="dense",
+                remat=False, moe_group_size=16)
+    with torch.no_grad():
+        want, _ = forward_train(params, cfg, CallConfig(**base),
+                                {"tokens": torch.from_numpy(tokens)})
+        for kw in MESH_KNOBS:
+            got, _ = forward_train(params, cfg, CallConfig(**base, **kw),
+                                   {"tokens": torch.from_numpy(tokens)})
+            assert torch.equal(got, want), kw
+    ref, _ = jax_forward(jparams, jcfg, JaxCall(
+        compute_dtype=jnp.float32, attention_impl="dense", remat=False,
+        moe_group_size=16, **MESH_KNOBS[-1]), {"tokens": jnp.asarray(tokens)})
+    assert float(np.max(np.abs(want.numpy() - np.asarray(ref)))) < TOL
 
 
 @pytest.mark.parametrize("arch", ARCHS)
