@@ -57,7 +57,10 @@ Phases, each printed as it ends; any failure exits non-zero:
               leader-crash-recover runs of the four scan protocols, a
               closed-loop grid and telemetry full, with both walls; then
               the audit (analysis/graph_lint.py) on the card: G1-G4 over
-              the reference's audit grid, its verdict printed;
+              the reference's audit grid, its verdict printed and landed
+              with graph_lint.append_history in a BENCH_history.jsonl
+              ledger under a temporary directory, read back and compared
+              (history.format_compare) against the ledger's first entry;
  6b. protocols — the rest of the paper's comparison through the entry
               points (run_sweep), tracing and monitoring off: (a) the full
               Fig-6 grids of mandator-paxos (50k/150k/300k/450k) and
@@ -81,6 +84,19 @@ Phases, each printed as it ends; any failure exits non-zero:
               mandator-paxos and multipaxos; (f) Fig 8's plan under
               paper-ddos (2 s; epaxos halved and doubled as there); (g)
               Fig 9: mandator-sporades at n = 3, 7, 9 for 1 s;
+ 6d. dispatch — the asynchronous dispatch: phase 4's and 6b's grids
+              (mandator-sporades seeds 0-3 and again with seeds 4-7, two
+              dispatches of one program pending together; mandator-paxos
+              and multipaxos; mandator alone 2 s; epaxos and rabia)
+              through one experiment.run_sweeps, each dispatch under
+              torch.cuda.set_sync_debug_mode("error") (a first capture,
+              which synchronizes by design, excepted and counted); every
+              row bitwise equal to the row the earlier phase (or, for seeds
+              4-7, a run_sweep here) computed sequentially; the
+              channel_ring_commit launches of the whole call (2 / 2 / 1 / 1
+              a tick); the wall of run_sweeps, the host seconds inside the
+              dispatches and inside the collects, and the sum of the same
+              grids' sequential walls;
   7. model kernels — RMSNorm (RMS_CASES: [8192, 576] and [4, 576],
               float32 and bfloat16, with and without residual, float32 and
               bfloat16 weights; d_model 8192; D = 100; x views off a
@@ -902,7 +918,7 @@ def phase_graph(results: dict) -> None:
             else:
                 st, tr = harness._scan_body(proto, rcfg, ticks, env, arr,
                                             len(seeds), dev)
-            res = harness._results(proto, rcfg, st, tr, arr)
+            res = harness._results(proto, rcfg, st, tr, arr).checked()
             torch.cuda.synchronize()
             runs[path] = (st, tr, res, time.perf_counter() - t0,
                           compile_cache.stats())
@@ -932,6 +948,35 @@ def phase_graph(results: dict) -> None:
                  " s")
     results["audit"] = {k: v[k] for k in ("ok", "violations", "protocols",
                                            "wall_s")}
+    audit_history(v)
+
+
+def audit_history(verdict: dict) -> None:
+    """Land the audit's verdict in a BENCH_history.jsonl ledger under a
+    temporary directory (graph_lint.append_history), read it back and
+    print history.format_compare of the latest entry against the ledger's
+    first."""
+    import tempfile
+
+    from repro_torch.analysis import graph_lint
+    from repro_torch.obs import history
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "BENCH_history.jsonl"
+        graph_lint.append_history(path, verdict,
+                                  analysis_counts={"active": 0})
+        entries = history.load(path)
+        if len(entries) != 1 or list(entries[0]["suites"]) != [
+                "graph-audit"]:
+            raise AssertionError(f"history ledger read back {entries}")
+        suite = entries[0]["suites"]["graph-audit"]
+        if suite["monitor"]["ok"] is not verdict["ok"] or \
+                suite["wall_s"] != verdict["wall_s"]:
+            raise AssertionError(f"ledger entry {suite} is not the verdict")
+        cmp = history.compare(entries[0], history.latest(path))
+        for line in history.format_compare(cmp):
+            log("audit", f"history: {line}")
+        if cmp["graph-audit"]["status"] != "ok":
+            raise AssertionError(f"history gate: {cmp}")
 
 
 # ---------------------------------------------------------------------------
@@ -1112,7 +1157,9 @@ def phase_protocols(results: dict) -> None:
     # (d) the analytic baselines, then each protocol's best throughput
     # with median < 1 s (benchmarks/figures.py's saturation rule)
     for proto, rates in ANALYTIC_FIG6.items():
+        t0 = time.perf_counter()
         fig6[proto] = run_sweep(proto, SMRConfig(), SweepSpec(rates=rates))
+        out[proto] = {"wall_s": time.perf_counter() - t0}
     summary = {}
     for proto, rows in fig6.items():
         ok = [r for r in rows if r["median_ms"] < 1_000]
@@ -1177,6 +1224,168 @@ def phase_protocols(results: dict) -> None:
         _check_points("mandator-sporades", rows, f"Fig 9 n={n}")
         fig9[n] = {"tput": r["throughput"], "med_ms": r["median_ms"]}
     out["fig9"] = fig9
+
+
+# ---------------------------------------------------------------------------
+# phase 6d: the asynchronous sweep dispatch
+# ---------------------------------------------------------------------------
+
+SEEDS_AGAIN = (4, 5, 6, 7)   # the sporades grid's second pending copy
+
+
+class StrictDispatch:
+    """While entered: every ``experiment.dispatch_sweep`` runs under
+    ``torch.cuda.set_sync_debug_mode("error")`` (a capture, which
+    synchronizes by design, runs outside it and is counted), and the host
+    seconds inside the dispatches and inside their ``collect()`` add up."""
+
+    def __init__(self):
+        self.dispatch_s = self.collect_s = 0.0
+        self.dispatches = self.captures = 0
+
+    def __enter__(self):
+        import torch
+        from repro_torch.core import compile_cache, experiment
+        self._real = (experiment.dispatch_sweep, compile_cache.capture)
+        real_dispatch, real_capture = self._real
+
+        def capture(*a, **k):
+            torch.cuda.set_sync_debug_mode(0)
+            try:
+                return real_capture(*a, **k)
+            finally:
+                torch.cuda.set_sync_debug_mode("error")
+                self.captures += 1
+
+        def dispatch(*a, **k):
+            t0 = time.perf_counter()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                pending = real_dispatch(*a, **k)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            self.dispatch_s += time.perf_counter() - t0
+            self.dispatches += 1
+            collect = pending.collect
+
+            def timed_collect():
+                t1 = time.perf_counter()
+                rows = collect()
+                self.collect_s += time.perf_counter() - t1
+                return rows
+            pending.collect = timed_collect
+            return pending
+
+        experiment.dispatch_sweep, compile_cache.capture = dispatch, capture
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.core import compile_cache, experiment
+        experiment.dispatch_sweep, compile_cache.capture = self._real
+        return False
+
+
+def _bitwise(a, b, what: str) -> None:
+    """Equal bit for bit: dicts key for key, arrays by dtype, shape and
+    bytes, scalars by type and value (NaN equal to NaN)."""
+    import numpy as np
+    if isinstance(a, dict):
+        if a.keys() != b.keys():
+            raise AssertionError(f"{what}: keys {sorted(a)} vs {sorted(b)}")
+        for k in a:
+            _bitwise(a[k], b[k], f"{what}.{k}")
+    elif isinstance(a, np.ndarray):
+        if not (a.dtype == b.dtype and a.shape == b.shape
+                and a.tobytes() == b.tobytes()):
+            raise AssertionError(f"{what} differs")
+    elif not (type(a) is type(b) and (a == b or (a != a and b != b))):
+        raise AssertionError(f"{what}: {a!r} vs {b!r}")
+
+
+def _bitwise_rows(got, want, what: str) -> None:
+    if len(got) != len(want):
+        raise AssertionError(f"{what}: {len(got)} rows, want {len(want)}")
+    for i, (g, w) in enumerate(zip(got, want)):
+        _bitwise(g, w, f"{what} row {i}")
+
+
+def phase_dispatch(results: dict) -> None:
+    """Phase 6d (see the module docstring)."""
+    import torch
+    from repro_torch.configs.smr import SMRConfig
+    from repro_torch.core import compile_cache, experiment
+    from repro_torch.core.experiment import SweepSpec
+
+    fig6, prot = results["fig6_rows"], results["protocols"]
+    cfg, cfg2 = SMRConfig(), SMRConfig(sim_seconds=2.0)
+    again = SweepSpec(rates=FIG6_RATES, seeds=SEEDS_AGAIN)
+    seq_again, seq_wall, _ = _counted("mandator-sporades", cfg, again)
+    requests = [("mandator-sporades", cfg,
+                 SweepSpec(rates=FIG6_RATES, seeds=FIG6_SEEDS)),
+                ("mandator-sporades", cfg, again)]
+    requests += [(p, cfg, SweepSpec(rates=r, seeds=FIG6_SEEDS))
+                 for p, r in PAXOS_FIG6.items()]
+    requests.append(("mandator", cfg2,
+                     SweepSpec(rates=FIG6_RATES, seeds=FIG6_SEEDS)))
+    requests += [(p, cfg, SweepSpec(rates=r))
+                 for p, r in ANALYTIC_FIG6.items()]
+    want = [fig6["mandator-sporades"], seq_again]
+    want += [fig6[p] for p, _, _ in requests[2:]]
+    seq = {"mandator-sporades seeds 0-3": results["wall_s"],
+           "mandator-sporades seeds 4-7": seq_wall}
+    seq.update({p: prot[p]["wall_s"] for p, _, _ in requests[2:]})
+
+    torch.cuda.synchronize()
+    _reset_counts()
+    experiment.reset_timing_stats()
+    with StrictDispatch() as strict:
+        t0 = time.perf_counter()
+        got = experiment.run_sweeps(requests)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts = _counts()
+    captured = compile_cache.capture_counts()
+    for (proto, _, spec), g, w in zip(requests, got, want):
+        _bitwise_rows(g, w, f"run_sweeps {proto} seeds {spec.seeds}")
+    scans = [(p, c) for p, c, _ in requests if p in RINGS]
+    ticks = [int(c.sim_seconds * 1000 / c.tick_ms) for _, c in scans]
+    prog = counts["_programs"]
+    # the wrapper launches for each grid's warm-up tick and each capture
+    wrapper = sum(RINGS[p] for p, _ in scans) + sum(
+        RINGS[p] * n for p, n in captured.items())
+    graph = sum(RINGS[p] * (t - 1) for (p, _), t in zip(scans, ticks))
+    if (prog["graph_runs"] != len(scans)
+            or prog["replays"] != sum(t - 1 for t in ticks)
+            or counts["channel_ring_commit_graph"] != graph
+            or prog["captures"] != strict.captures
+            or counts["channel_ring_commit"] != wrapper):
+        raise AssertionError(f"dispatch: {len(scans)} grids, expected "
+                             f"{graph} commits by the replays and {wrapper} "
+                             f"through the wrapper: {counts}")
+    seq_sum = sum(seq.values())
+    log("dispatch", f"run_sweeps over {len(requests)} requests "
+                    f"({len(scans)} scan grids, two of one sporades "
+                    f"program pending together): every row bitwise equal "
+                    f"to its sequential run; {strict.dispatches} "
+                    f"dispatches under set_sync_debug_mode('error'), "
+                    f"{strict.captures} of them captured a program "
+                    f"(synchronizing, excepted)")
+    log("dispatch", f"channel_ring_commit launches: "
+                    f"{counts['channel_ring_commit']} through the wrapper "
+                    f"(warm-up ticks and captures), "
+                    f"{counts['channel_ring_commit_graph']} by "
+                    f"{prog['replays']} replays")
+    log("dispatch", f"run_sweeps wall {wall!r} s; host inside the "
+                    f"dispatches {strict.dispatch_s!r} s, inside the "
+                    f"collects {strict.collect_s!r} s; the same grids run "
+                    f"sequentially {seq_sum!r} s ("
+                    + ", ".join(f"{k} {v!r}" for k, v in seq.items())
+                    + f"); ratio {wall / seq_sum!r}")
+    log("dispatch", f"timing_stats: {experiment.timing_stats()}")
+    results["dispatch"] = {"wall_s": wall, "dispatch_s": strict.dispatch_s,
+                           "collect_s": strict.collect_s,
+                           "sequential_s": seq_sum, "sequential": seq,
+                           "captures": strict.captures}
 
 
 # ---------------------------------------------------------------------------
@@ -4285,6 +4494,7 @@ def run_phases(results: dict, timed) -> None:
     timed("whole path", phase_whole_path)
     timed("graph", phase_graph, results)
     timed("protocols", phase_protocols, results)
+    timed("dispatch", phase_dispatch, results)
     timed("model kernels", phase_model_kernels, results)
     model = _smollm()
     timed("prefill", phase_prefill, results, model)

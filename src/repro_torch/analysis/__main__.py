@@ -2,13 +2,16 @@
 
   PYTHONPATH=src python -m repro_torch.analysis \\
       [--rules R1,R4,...] [--baseline baseline.json] [--json findings.json]
-      [--graph [--device cuda] [--sim-seconds 2.0]]
+      [--graph [--device cuda] [--sim-seconds 2.0]
+               [--graph-history BENCH_history.jsonl]]
 
 Exit codes: 0 clean (active findings == 0), 1 findings, 2 internal
 error. ``--graph`` also audits the captured tick program of every scan
 protocol (``graph_lint.py``, G1-G4, the counterpart of the reference's
 ``--hlo``): on the CPU by default (G1, G2 and the host sides of G3 and
-G4), on the card with ``--device cuda`` (the captures too).
+G4), on the card with ``--device cuda`` (the captures too), appending the
+verdict to the benchmark history ledger when ``--graph-history`` names a
+path (the counterpart of ``--hlo-history``).
 """
 from __future__ import annotations
 
@@ -64,6 +67,9 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cpu",
                     help="device of the --graph audit (default cpu; cuda "
                          "captures and replays the programs)")
+    ap.add_argument("--graph-history", default=None,
+                    help="append the --graph audit's verdict to this "
+                         "BENCH_history.jsonl ledger")
     ap.add_argument("--sim-seconds", type=float, default=2.0,
                     help="sweep length of the --graph audit")
     ap.add_argument("--quiet", action="store_true")
@@ -78,6 +84,7 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
 
+    verdict = None
     if args.graph:
         from repro_torch.analysis import graph_lint
         try:
@@ -93,6 +100,12 @@ def main(argv=None) -> int:
 
     if args.baseline:
         report.apply_baseline(load_baseline(args.baseline))
+    if verdict is not None and args.graph_history:
+        from repro_torch.analysis import graph_lint
+        counts = {"active": len(report.active)}
+        counts.update(report.counts())
+        graph_lint.append_history(args.graph_history, verdict,
+                                  analysis_counts=counts)
     if args.update_baseline:
         Path(args.update_baseline).write_text(
             json.dumps(report.baseline_json(), indent=1) + "\n")

@@ -38,9 +38,11 @@ G1, G2 and the host sides of G3 and G4 run on the CPU; ``device="cuda"``
 adds the captures, replays and launch counts. The analytic protocols
 (epaxos, rabia) have no device program and are vacuously clean. The
 verdict is shaped like an ``obs/monitor.py`` verdict (``ok`` /
-``violations`` / ``level`` / ``points``), as the reference's. The
-reference's ``append_history`` (its ``BENCH_history.jsonl`` ledger) waits
-for the port of ``obs/history.py`` (ROADMAP A9).
+``violations`` / ``level`` / ``points``), as the reference's, and
+``append_history`` lands it in the ``BENCH_history.jsonl`` ledger
+(``obs/history.py``) as a ``graph-audit`` suite: a suite of its own, so
+that ``history.compare`` never sets a graph audit's wall against the
+reference's ``hlo-audit`` in a ledger both packages write.
 """
 from __future__ import annotations
 
@@ -117,7 +119,7 @@ def _grid(cfg, sim_seconds: float, workload: Optional[str]):
 
 
 def _inputs(protocol: str, cfg, spec, dev):
-    """A sweep's run inputs, as ``experiment._scan_rows`` builds them:
+    """A sweep's run inputs, as ``experiment.dispatch_sweep`` builds them:
     (resolved cfg, n_ticks, env, arrivals, lanes)."""
     from repro_torch.core import experiment, harness, netsim
     _, rcfg, mode, env, rate_b, seeds = experiment._lower(
@@ -315,6 +317,24 @@ def audit(protocols=None, sim_seconds: float = 2.0,
         "sim_seconds": sim_seconds,
         "device": str(dev),
     }
+
+
+def append_history(path, verdict: Dict, quick: bool = True,
+                   analysis_counts: Optional[Dict[str, int]] = None) \
+        -> None:
+    """Land the audit verdict in the ``BENCH_history.jsonl`` ledger at
+    ``path`` as a ``graph-audit`` suite entry: regressions then gate
+    through ``history.compare`` exactly like runtime monitor
+    violations."""
+    from repro_torch.obs import history
+    suite = {"wall_s": verdict["wall_s"], "monitor": verdict}
+    if analysis_counts is not None:
+        suite["analysis"] = dict(analysis_counts)
+    repo = Path(path).resolve().parent
+    entry = history.make_entry({"graph-audit": suite}, quick=quick,
+                               git_sha=history.git_sha(repo),
+                               timestamp=time.time())
+    history.append(path, entry)
 
 
 def format_verdict(v: Dict) -> str:

@@ -94,3 +94,18 @@ class SMRConfig:
 
     def delays_ms(self) -> np.ndarray:
         return one_way_delay_ms(self.n_replicas)
+
+
+PAPER_CLAIMS = {
+    # headline numbers from the paper, the reference's comparisons' targets
+    "mandator_sporades_tput": 300_000,   # tx/s, <900ms median, 5 replicas
+    "mandator_paxos_tput": 300_000,
+    "multipaxos_tput": 40_000,           # ~295ms median
+    "epaxos_tput": 6_500,                # ~720ms median
+    "rabia_tput": 500,                   # ~500ms median
+    "ddos_mandator_sporades_tput": 400_000,  # under 5s median bound
+    "ddos_mandator_paxos_tput": 250_000,
+    "ddos_multipaxos_tput": 45_000,
+    "ddos_epaxos_tput": 7_200,
+    "scal_9_replicas_tput": 150_000,
+}

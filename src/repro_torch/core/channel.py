@@ -7,7 +7,9 @@ one flag field per channel). Sender i's message to j sent at tick t lands
 in slot ``(t + clip(delay_ij, 1, D-1)) % D``. All protocol payloads are
 monotone, so colliding deliveries merge by elementwise max (additive
 counter channels by add); the receive side folds arrivals into
-"latest state" matrices with elementwise max (``fold_state``).
+"latest state" matrices with elementwise max (``fold_state``). The
+reference's unpacked per-channel API (``make_channel``, ``send``,
+``deliver``: one ring per message type, unbatched) is kept beside it.
 
 A whole tick's traffic is one fused commit (``ring_commit``): the slot
 clear, one scatter-max and one scatter-add, through
@@ -45,6 +47,65 @@ def fold_state(state: torch.Tensor, flags: torch.Tensor,
     arr = payload.transpose(1, 2)
     fl = flags.transpose(1, 2)[..., None]
     return torch.where(fl, torch.maximum(state, arr), state)
+
+
+# --------------------------------------------------------------------------
+# The per-channel ring (the reference's unpacked API): one ring dict per
+# message type, unbatched, the semantics the packed ring is pinned against
+# --------------------------------------------------------------------------
+
+def make_channel(dmax: int, n: int, p: int, additive: bool = False,
+                 device=None) -> Dict[str, torch.Tensor]:
+    """One channel's ring on ``device`` (None = CUDA): ``buf`` [dmax, n, n,
+    p] float32 at its fill (``NEG``; 0.0 when ``additive``), ``flag``
+    [dmax, n, n] bool, ``fill`` a 0-dim float32."""
+    dev = _device.resolve(device)
+    fill = 0.0 if additive else NEG
+    return {"buf": torch.full((dmax, n, n, p), fill, dtype=torch.float32,
+                              device=dev),
+            "flag": torch.zeros((dmax, n, n), dtype=torch.bool, device=dev),
+            "fill": torch.tensor(fill, dtype=torch.float32, device=dev)}
+
+
+def send(ch: Dict[str, torch.Tensor], t, payload: torch.Tensor,
+         delay_ticks: torch.Tensor, mask: torch.Tensor,
+         additive: bool = False, drop=None) -> Dict[str, torch.Tensor]:
+    """payload: [n, n, P] (sender, receiver, fields); delay_ticks: [n, n]
+    int, clipped to [1, dmax - 1]; mask: [n, n] bool, the (i, j) that send
+    this tick; drop: optional [n, n] bool, links the scenario cuts (a
+    silent omission). Merges by elementwise max, or adds when
+    ``additive``. Each (i, j) writes one slot, so no index repeats and the
+    result is the same on every device. Returns a new channel."""
+    if drop is not None:
+        mask = mask & ~drop
+    buf, flag = ch["buf"].clone(), ch["flag"].clone()
+    dmax, n = buf.shape[0], payload.shape[0]
+    t = _device.tick_index(t, buf.device)
+    slot = (t.long() + torch.clamp(delay_ticks.long(), 1, dmax - 1)) % dmax
+    ii, jj = torch.meshgrid(torch.arange(n, device=buf.device),
+                            torch.arange(n, device=buf.device),
+                            indexing="ij")
+    at = (slot, ii, jj)
+    if additive:
+        buf[at] = buf[at] + torch.where(mask[..., None], payload, 0.0)
+    else:
+        buf[at] = torch.maximum(buf[at], torch.where(mask[..., None],
+                                                     payload, NEG))
+    flag[at] = flag[at] | mask
+    return {"buf": buf, "flag": flag, "fill": ch["fill"]}
+
+
+def deliver(ch: Dict[str, torch.Tensor], t
+            ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor, torch.Tensor]:
+    """Pop slot ``t % dmax``: returns (the channel with the slot cleared,
+    flags [n, n], payload [n, n, P]), indexed on the device."""
+    dmax = ch["buf"].shape[0]
+    slot = (_device.tick_index(t, ch["buf"].device).long() % dmax).view(1)
+    flags = ch["flag"].index_select(0, slot)[0]
+    payload = ch["buf"].index_select(0, slot)[0]
+    buf = ch["buf"].index_fill(0, slot, ch["fill"])
+    flag = ch["flag"].index_fill(0, slot, False)
+    return {"buf": buf, "flag": flag, "fill": ch["fill"]}, flags, payload
 
 
 class ChannelSpec(NamedTuple):
@@ -113,7 +174,7 @@ class RingSpec:
 def fill_tensor(spec: RingSpec, device: torch.device) -> torch.Tensor:
     """``spec.fill()`` on ``device``, made once so a tick copies nothing
     from the host."""
-    return torch.as_tensor(spec.fill(), device=device)
+    return _device.to_device(spec.fill(), device)
 
 
 def ring_occupancy(spec: RingSpec, ring: Dict[str, torch.Tensor]
@@ -133,8 +194,8 @@ def ring_occupancy(spec: RingSpec, ring: Dict[str, torch.Tensor]
 @functools.lru_cache(maxsize=None)
 def _flag_index(spec: RingSpec, device: torch.device) -> torch.Tensor:
     """The flag fields' offsets in the packed ring, on ``device``."""
-    return torch.tensor([spec.flag(c.name) for c in spec.channels],
-                        dtype=torch.int64, device=device)
+    return _device.to_device([spec.flag(c.name) for c in spec.channels],
+                             device, torch.int64)
 
 
 def _reciprocal(like: torch.Tensor, size: int) -> torch.Tensor:

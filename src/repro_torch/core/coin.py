@@ -17,6 +17,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch import device as _device
+
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 _PARITY = np.uint32(0x1BD11BDA)
 
@@ -111,5 +113,5 @@ def coin_table(max_views: int, n: int, seed: int = 0, device=None
     ``device`` — the paper's 'pre-generate random numbers for each view
     number' implementation — from JAX's default (partitionable) threefry
     stream."""
-    return torch.as_tensor(coin_table_np(max_views, n, seed).astype(np.int64),
-                           device=device)
+    return _device.to_device(coin_table_np(max_views, n, seed).astype(
+        np.int64), "cpu" if device is None else device)

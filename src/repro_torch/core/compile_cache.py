@@ -15,9 +15,11 @@ store below makes it once per process and program:
   under an equal config gives an equal key), captures it on a miss, and
   replays it. A hit captures nothing: the run's carry and inputs are
   copied into the program's static buffers, the graph replays, and the
-  results are copied out. A run's own tensors are never the program's
-  buffers, so a later run of the same program overwrites nothing a caller
-  holds.
+  results are copied out, all in stream order and without a read back
+  (``start`` / ``Replays`` enqueue a run a share at a time). A run's own
+  tensors are never the program's buffers, so a later run of the same
+  program, dispatched before this one's results are read, overwrites
+  nothing a caller holds.
 * ``stats()`` / ``delta()`` / ``reset_stats()`` count captures, capture
   seconds, hits, replays and eager ticks, the kernel launches the
   replays made (each program's kernel nodes, read once from its graph,
@@ -41,14 +43,15 @@ from __future__ import annotations
 import collections
 import time
 from dataclasses import dataclass
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import torch
 
 from repro_torch.kernels import _build
 
 # programs kept; the oldest is dropped past this (its graph and buffers
-# freed): a program holds a copy of its carry, rings included
+# freed once no pending run holds it): a program holds a copy of its
+# carry, rings included
 MAX_PROGRAMS = 24
 
 STAT_KEYS = ("captures", "capture_s", "hits", "replays", "graph_runs",
@@ -189,16 +192,49 @@ def count_eager(ticks: int) -> None:
     _STATS["eager_ticks"] += ticks
 
 
-def run(key: tuple, protocol: str,
-        tick: Callable[[Dict, Dict, torch.Tensor], Dict], carry: Dict,
-        inputs: Dict, t: torch.Tensor, replays: int) -> tuple:
-    """Run ``replays`` ticks of ``tick(carry, inputs, t) -> carry`` (which
-    advances ``t`` itself) as replays of one captured graph, from this
-    run's ``carry`` (after its eager warm-up tick) and ``inputs``; the
-    program is captured on the first run of ``key``. ``inputs``: {"in":
-    tensors the tick reads, "out": tensors it writes in place}, leaves may
-    be None. Returns (final carry, the program); ``inputs["out"]`` and
-    ``t`` hold the run's results."""
+class Replays:
+    """One run's replays of a program, enqueued a share at a time: ``step``
+    enqueues up to ``n`` more, ``finish`` copies the results out. Between
+    ``start`` and ``finish`` the program's buffers hold this run, so runs
+    of one program go one after another; runs of distinct programs (one
+    per card on the reduced path) may interleave their steps. Everything
+    is enqueued in stream order and nothing is read back, so a run's
+    results are those of ``run``. Holding it keeps its program (graph and
+    buffers) alive, evicted from the store or not."""
+
+    def __init__(self, prog: Program, inputs: Dict, t: torch.Tensor,
+                 left: int):
+        self.program = prog
+        self._inputs, self._t, self.left = inputs, t, left
+
+    def step(self, n: Optional[int] = None) -> bool:
+        """Enqueue up to ``n`` replays (all that are left with None);
+        True while some are left."""
+        k = self.left if n is None else min(n, self.left)
+        self.program.replay(k)
+        self.left -= k
+        return self.left > 0
+
+    def finish(self) -> Dict:
+        """Copy the written inputs and ``t`` back into the run's own
+        tensors (after the last replay, in stream order); return a copy
+        of the final carry."""
+        if self.left:
+            raise RuntimeError(f"{self.left} replays not enqueued yet")
+        return self.program.unload(self._inputs, self._t)
+
+
+def start(key: tuple, protocol: str,
+          tick: Callable[[Dict, Dict, torch.Tensor], Dict], carry: Dict,
+          inputs: Dict, t: torch.Tensor, replays: int) -> Replays:
+    """Begin a run of ``replays`` ticks of ``tick(carry, inputs, t) ->
+    carry`` (which advances ``t`` itself) as replays of one captured
+    graph, from this run's ``carry`` (after its eager warm-up tick) and
+    ``inputs``: the program is captured on the first run of ``key`` (a
+    capture synchronizes), and the run's state is loaded into its buffers
+    (enqueued copies; nothing synchronizes). ``inputs``: {"in": tensors
+    the tick reads, "out": tensors it writes in place}, leaves may be
+    None."""
     prog = _STORE.get(key)
     if prog is None:
         prog = capture(tick, carry, inputs, t, protocol)
@@ -212,10 +248,19 @@ def run(key: tuple, protocol: str,
         _STORE.move_to_end(key)
         _STATS["hits"] += 1
     prog.load(carry, inputs, t)
-    prog.replay(replays)
     _STATS["graph_runs"] += 1
     _STATS["eager_ticks"] += 1          # the run's warm-up tick
-    return prog.unload(inputs, t), prog
+    return Replays(prog, inputs, t, replays)
+
+
+def run(key: tuple, protocol: str,
+        tick: Callable[[Dict, Dict, torch.Tensor], Dict], carry: Dict,
+        inputs: Dict, t: torch.Tensor, replays: int) -> tuple:
+    """``start`` a run and enqueue all its replays. Returns (final carry,
+    the program); ``inputs["out"]`` and ``t`` hold the run's results."""
+    r = start(key, protocol, tick, carry, inputs, t, replays)
+    r.step()
+    return r.finish(), r.program
 
 
 # lint: traced-root

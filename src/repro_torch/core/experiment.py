@@ -22,8 +22,15 @@ sharing a closed-mode grid with closed-loop lanes included.
 The analytic baselines (epaxos / rabia) have no tick loop; they are looped
 on the host behind the same API, and touch no device.
 
-``dispatch_sweep`` returns a ``PendingSweep`` as the reference's does, but
-runs the grid before it returns; ``collect()`` only hands the rows over.
+``dispatch_sweep`` returns a ``PendingSweep`` before the grid has run, as
+the reference's does: on the card it does the host's lowering and enqueues
+all the device's work (the warm-up tick, the capture when the program is
+new, the replays, the metrics' extraction) and reads nothing back; only
+``collect()`` waits for the card and reads the rows back, and the checks
+that read a run's flags (``harness.PointResult``) raise from there.
+``run_sweeps`` dispatches every request before it collects any, so each
+grid's device time overlaps the host work of lowering the next. On the
+CPU the grid has run by the time ``dispatch_sweep`` returns.
 
 **Programs.** On the card a grid's tick loop is one captured tick replayed
 (``harness._scan_body``, ``core/compile_cache.py``), the counterpart of the
@@ -35,20 +42,28 @@ horizon floors at ``netsim.CANONICAL_HORIZON``, so that sweeps of one
 protocol and config with equal ``ProgramSignature``s (``_signature``)
 replay one captured program. The port keeps a grid's points as the lanes
 of its one program (the reference pins its program to one lane).
-``capture_counts``, ``program_signatures`` and ``compile_report`` account
-for the programs, as the reference's ``trace_counts`` and friends.
+``capture_counts``, ``program_signatures``, ``shard_signatures`` and
+``compile_report`` account for the programs, as the reference's
+``trace_counts`` and friends; ``timing_stats`` splits the walls as the
+reference does.
 
 **The reduced path** (``mesh=``, the reference's sharded sweep engine):
 the flattened grid's lanes split over a grid of devices
 (``distributed/mesh.py``) in contiguous blocks, padded to a multiple of
 the device count by repeating the last real point; each block runs
-through ``harness.sim_point(..., reduced=True)`` on its device, and the
+through ``harness.PointRun(..., reduced=True)`` on its device, and the
 pad is sliced off the rows. The rows carry the same scalars, bit for bit,
-without ``harness.REDUCED_DROPS``, plus a 64-bin latency ``sketch``. The
-blocks run one after another from this process's host loop.
+without ``harness.REDUCED_DROPS``, plus a 64-bin latency ``sketch``. Every
+block is dispatched before any is collected, as the reference's one
+sharded dispatch: each device's blocks run one after another (they may
+share one program's buffers), and the devices' replays are enqueued in
+turns of ``REPLAY_CHUNK`` (``_interleave``), so that no device waits for
+another's replays to be enqueued. One host thread does it all, so the
+process-wide accounting stays exact without locks.
 """
 from __future__ import annotations
 
+import functools
 import itertools
 import time
 from dataclasses import dataclass
@@ -74,8 +89,13 @@ _ANALYTIC_MODELS = {"epaxos": run_epaxos_model, "rabia": run_rabia_model}
 # the window-table floor of a canonical lowering, the reference's
 CANONICAL_MIN_WINDOWS = 32
 
+# replays one block of the reduced path enqueues before the next device's
+# block takes its turn
+REPLAY_CHUNK = 64
+
 _TIMING: Dict[str, Dict[str, float]] = {}
 _SIGNATURES: Dict[str, set] = {}
+_SHARD_SIGNATURES: Dict[str, set] = {}
 
 
 def _canon_pow2(x: int, floor: int) -> int:
@@ -95,6 +115,14 @@ def reset_capture_counts() -> None:
     programs stay: a reused program still counts 0 captures)."""
     compile_cache.reset_stats()
     _SIGNATURES.clear()
+    _SHARD_SIGNATURES.clear()
+
+
+def shard_signatures() -> Dict[str, tuple]:
+    """Distinct (ProgramSignature, devices) pairs dispatched through the
+    reduced path per protocol since the last ``reset_capture_counts()``
+    (``devices``: the mesh's device count, as the reference's)."""
+    return {p: tuple(sorted(s)) for p, s in _SHARD_SIGNATURES.items()}
 
 
 def program_signatures() -> Dict[str, tuple]:
@@ -113,10 +141,18 @@ def compile_report() -> Dict:
 
 
 def timing_stats() -> Dict[str, Dict[str, float]]:
-    """Per-protocol wall-clock of the sweeps since the last reset:
-    ``run_s`` (tick loop + metrics + readback) and ``horizon`` (the
-    resolved ring size of the latest sweep)."""
+    """Per-protocol wall-clock of the sweeps since the last reset, in the
+    reference's buckets: ``compile_s`` (the walls of dispatches that
+    captured a program), ``run_s`` (the walls of the other dispatches plus
+    every ``collect()``'s wait and readback), ``dispatches``, and
+    ``horizon`` (the resolved ring size of the latest sweep). On the CPU a
+    dispatch runs its grid, so its wall is run time."""
     return {k: dict(v) for k, v in _TIMING.items()}
+
+
+def _timing(protocol: str) -> Dict[str, float]:
+    return _TIMING.setdefault(protocol, {"compile_s": 0.0, "run_s": 0.0,
+                                         "dispatches": 0, "horizon": 0})
 
 
 def reset_timing_stats() -> None:
@@ -222,19 +258,6 @@ def _signature(cfg: SMRConfig, spec: SweepSpec, canonical: bool = True,
                          sampling)
 
 
-class PendingSweep:
-    """A dispatched sweep. In the port the grid has already run when
-    ``dispatch_sweep`` returns (see the module docstring); ``collect()``
-    returns its rows."""
-
-    def __init__(self, protocol: str, results: List[Dict]):
-        self.protocol = protocol
-        self._results = results
-
-    def collect(self) -> List[Dict]:
-        return self._results
-
-
 # per-point arrays: the timelines and per-origin quantiles every scan
 # protocol returns unreduced; closed-loop in-flight high water and the
 # flight recorder's phase breakdown (absent at trace_level off). The
@@ -265,7 +288,7 @@ def _take(tree, idx):
         return {k: _take(v, idx) for k, v in tree.items()}
     if isinstance(tree, torch.Tensor):
         return tree[idx if isinstance(idx, slice)
-                    else torch.as_tensor(idx, device=tree.device)]
+                    else _device.to_device(idx, tree.device)]
     return None if tree is None else np.asarray(tree)[idx]
 
 
@@ -295,38 +318,35 @@ def _blocks(n_real: int, n_dev: int):
     return np.split(idx.astype(np.int64), n_dev)
 
 
-def _scan_rows(protocol: str, cfg: SMRConfig, spec: SweepSpec,
-               wl_names: List[str], device, draws, epochs,
-               mesh=None, canonical: bool = True) -> List[Dict]:
-    devices = dmesh.as_grid_mesh(mesh)
-    reduced = devices is not None
-    if reduced and device is not None:
-        raise ValueError("pass either device= or mesh=: a mesh names the "
-                         "devices of the reduced path")
-    if not reduced:
-        devices = [_device.resolve(device)]
-    t0 = time.perf_counter()
-    pts, cfg, mode, env_b, rate_b, seed_b = _lower(cfg, spec, devices[0],
-                                                   canonical)
-    harness.check_supported(protocol, cfg, mode)
-    wlt = _lower_workloads(cfg, spec, canonical)
-    _SIGNATURES.setdefault(protocol, set()).add(_signature_of(
-        cfg, mode, env_b, wlt, rate_b,
-        sampling=draws is None or epochs is not None))
-    seed_b = np.asarray(seed_b)
-    blocks = (_blocks(len(pts), len(devices)) if reduced
-              else [slice(None)])
-    outs = [_to_numpy(harness.sim_point(
-        protocol, cfg, _take(env_b, blk), rate_b[blk].tolist(),
-        seed_b[blk].tolist(), draws=_take(draws, blk), mode=mode,
-        device=dev, wlt=_take(wlt, blk), epochs=_take(epochs, blk),
-        reduced=reduced)) for dev, blk in zip(devices, blocks)]
-    # the pad's rows (repeats of the last real point) go
-    out = _take(outs[0] if len(outs) == 1 else _concat(outs),
-                slice(len(pts)))
-    stats = _TIMING.setdefault(protocol, {"run_s": 0.0, "horizon": 0})
-    stats["run_s"] += time.perf_counter() - t0
-    stats["horizon"] = int(cfg.delay_horizon_ticks)
+_DONE = object()
+
+
+def _interleave(starts, devices) -> List[harness.PointResult]:
+    """Run the reduced path's blocks (``starts[i]()`` makes block i's
+    ``harness.PointRun`` on ``devices[i]``): each device's blocks one
+    after another, since they may share one program's buffers, and the
+    devices' replays enqueued ``REPLAY_CHUNK`` at a time in turns, so that
+    every device has work queued while the host feeds the others. Returns
+    each block's results, in block order."""
+    results: List = [None] * len(starts)
+
+    def blocks_on(dev):
+        for i, start in enumerate(starts):
+            if devices[i] != dev:
+                continue
+            run = start()
+            while run.advance(REPLAY_CHUNK):
+                yield
+            results[i] = run.finish()
+
+    turns = [blocks_on(dev) for dev in dict.fromkeys(devices)]
+    while turns:
+        turns = [g for g in turns if next(g, _DONE) is not _DONE]
+    return results
+
+
+def _rows(protocol: str, pts, wl_names: List[str], out: Dict) -> List[Dict]:
+    """One result dict per grid point from the read-back [B, ...] arrays."""
     results: List[Dict] = []
     for i, (rate, seed, fi, wi) in enumerate(pts):
         r: Dict = {"protocol": protocol, "rate": rate, "seed": seed,
@@ -353,17 +373,100 @@ def _scan_rows(protocol: str, cfg: SMRConfig, spec: SweepSpec,
     return results
 
 
+class PendingSweep:
+    """A dispatched sweep whose device work may still be running.
+    ``collect()`` waits for it, raises as the runs' checks say (before
+    any row is returned), reads the results back, slices off the reduced
+    path's pad and builds the rows, once: a second ``collect()`` returns
+    the same list. It holds each run's ``harness.PointResult``, and so
+    the captured programs they replayed, until then. Analytic protocols
+    resolve at dispatch (``results``)."""
+
+    def __init__(self, protocol: str, *, results: List[Dict] = None,
+                 pts=None, wl_names=None, points=None, n_real=None):
+        self.protocol = protocol
+        self._results = results
+        self._pts = pts
+        self._wl_names = wl_names
+        self._points = points     # harness.PointResult, one per block
+        self._n_real = n_real     # reduced path: real points before the pad
+
+    def collect(self) -> List[Dict]:
+        if self._results is not None:
+            return self._results
+        t0 = time.perf_counter()
+        for p in self._points:
+            p.checked()
+        outs = [_to_numpy(p.out) for p in self._points]
+        out = outs[0] if len(outs) == 1 else _concat(outs)
+        if self._n_real is not None:
+            out = _take(out, slice(self._n_real))
+        _timing(self.protocol)["run_s"] += time.perf_counter() - t0
+        self._points = None
+        self._results = _rows(self.protocol, self._pts, self._wl_names, out)
+        return self._results
+
+
+def _dispatch_scan(protocol: str, cfg: SMRConfig, spec: SweepSpec,
+                   wl_names: List[str], device, draws, epochs, mesh=None,
+                   canonical: bool = True) -> PendingSweep:
+    devices = dmesh.as_grid_mesh(mesh)
+    reduced = devices is not None
+    if reduced and device is not None:
+        raise ValueError("pass either device= or mesh=: a mesh names the "
+                         "devices of the reduced path")
+    if not reduced:
+        devices = [_device.resolve(device)]
+    t0 = time.perf_counter()
+    captures = compile_cache.stats()["captures"]
+    # the reduced path lowers on the host; each block goes to its device
+    pts, cfg, mode, env_b, rate_b, seed_b = _lower(
+        cfg, spec, torch.device("cpu") if reduced else devices[0],
+        canonical)
+    harness.check_supported(protocol, cfg, mode)
+    wlt = _lower_workloads(cfg, spec, canonical)
+    sig = _signature_of(cfg, mode, env_b, wlt, rate_b,
+                        sampling=draws is None or epochs is not None)
+    _SIGNATURES.setdefault(protocol, set()).add(sig)
+    seed_b = np.asarray(seed_b)
+    if reduced:
+        _SHARD_SIGNATURES.setdefault(protocol, set()).add(
+            (sig, len(devices)))
+        starts = [functools.partial(
+            harness.PointRun, protocol, cfg, _take(env_b, blk),
+            rate_b[blk].tolist(), seed_b[blk].tolist(),
+            draws=_take(draws, blk), mode=mode, device=dev,
+            wlt=_take(wlt, blk), epochs=_take(epochs, blk), reduced=True)
+            for dev, blk in zip(devices, _blocks(len(pts), len(devices)))]
+        points = _interleave(starts, devices)
+    else:
+        run = harness.PointRun(protocol, cfg, env_b, rate_b.tolist(),
+                               seed_b.tolist(), draws=draws, mode=mode,
+                               device=devices[0], wlt=wlt, epochs=epochs)
+        run.advance()
+        points = [run.finish()]
+    stats = _timing(protocol)
+    captured = compile_cache.stats()["captures"] > captures
+    stats["compile_s" if captured else "run_s"] += time.perf_counter() - t0
+    stats["dispatches"] += 1
+    stats["horizon"] = int(cfg.delay_horizon_ticks)
+    return PendingSweep(protocol, pts=pts, wl_names=wl_names, points=points,
+                        n_real=len(pts) if reduced else None)
+
+
 def dispatch_sweep(protocol: str, cfg: SMRConfig, spec: SweepSpec,
                    device=None, draws=None, epochs=None, mesh=None,
                    canonical: bool = True) -> PendingSweep:
-    """Run the grid and return it as a ``PendingSweep``. Scan protocols
+    """Lower and dispatch the grid without waiting for the device: returns
+    a ``PendingSweep`` whose ``collect()`` gives the rows. Scan protocols
     (``harness.PROTOCOLS``) run as one batched dispatch of B lanes on
     ``device`` (None = CUDA, raises without one; or e.g. "cpu"), under
     any library workload and any trace or monitor level. ``draws`` (an
     optional [B, T, n] arrival table) and ``epochs`` (an optional
     [B, n, M] epoch stream of the closed lanes) replace their per-lane
     torch draws (see ``harness.sim_point``). The analytic baselines
-    (``ANALYTIC_PROTOCOLS``) loop on the host and take neither.
+    (``ANALYTIC_PROTOCOLS``) loop on the host, resolve here, and take
+    neither.
 
     ``mesh`` selects the reduced path (module docstring): an int (the
     first N CUDA devices) or a sequence of devices
@@ -376,11 +479,10 @@ def dispatch_sweep(protocol: str, cfg: SMRConfig, spec: SweepSpec,
         if draws is not None or epochs is not None:
             raise ValueError(f"{protocol} is an analytic model and draws no "
                              "arrivals")
-        return PendingSweep(protocol,
-                            _analytic_rows(protocol, cfg, spec, wl_names))
-    return PendingSweep(protocol, _scan_rows(protocol, cfg, spec, wl_names,
-                                             device, draws, epochs, mesh,
-                                             canonical))
+        return PendingSweep(protocol, results=_analytic_rows(
+            protocol, cfg, spec, wl_names))
+    return _dispatch_scan(protocol, cfg, spec, wl_names, device, draws,
+                          epochs, mesh, canonical)
 
 
 def run_sweep(protocol: str, cfg: SMRConfig, spec: SweepSpec, device=None,
@@ -393,3 +495,13 @@ def run_sweep(protocol: str, cfg: SMRConfig, spec: SweepSpec, device=None,
     ``epochs``, ``mesh`` and ``canonical``."""
     return dispatch_sweep(protocol, cfg, spec, device, draws, epochs, mesh,
                           canonical).collect()
+
+
+def run_sweeps(requests, device=None) -> List[List[Dict]]:
+    """Dispatch every ``(protocol, cfg, spec)`` request before collecting
+    any, so each grid's device time overlaps the host work of lowering the
+    next; returns the per-request rows in request order, equal to
+    ``[run_sweep(*r, device=device) for r in requests]``."""
+    pending = [dispatch_sweep(p, cfg, spec, device=device)
+               for p, cfg, spec in requests]
+    return [p.collect() for p in pending]

@@ -41,7 +41,7 @@ from __future__ import annotations
 
 import contextlib
 import math
-from typing import Dict, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -58,6 +58,7 @@ from repro_torch.workloads.compile import TRIVIAL_MODE, WorkloadMode
 
 PROTOCOLS = ("mandator-sporades", "mandator-paxos", "multipaxos",
              "mandator")
+SCAN_PROTOCOLS = PROTOCOLS          # the reference's name of the tuple
 
 # Per-batch / per-tick output arrays whose size scales with the grid's
 # record capacity: the reduced sweep path (experiment.py, ``mesh=``)
@@ -445,6 +446,28 @@ def program_key(protocol: str, cfg: SMRConfig, n_ticks: int, env: Dict,
                         run["inputs"])
 
 
+def _start_scan(protocol: str, cfg: SMRConfig, n_ticks: int, env: Dict,
+                draws, batch: int, device: torch.device,
+                reduced: bool = False):
+    """Set the tick loop up and start it. Returns (run, replays): where
+    the loop runs eagerly it has run, and ``replays`` is None; on the card
+    the warm-up tick has run and ``replays`` (``compile_cache.Replays``)
+    enqueues the rest."""
+    run = _setup(protocol, cfg, n_ticks, env, draws, batch, device, reduced)
+    if device.type != "cuda" or _EAGER_ON_CARD or n_ticks < 2:
+        for _ in range(n_ticks):
+            _warm(run, protocol, cfg)
+        compile_cache.count_eager(n_ticks)
+        return run, None
+    _warm(run, protocol, cfg)                               # the warm-up
+    key = _program_key(protocol, cfg, run["arr"], reduced, run["carry"],
+                       run["inputs"])
+    return run, compile_cache.start(key, protocol,
+                                    _graph_tick(run, protocol, cfg),
+                                    run["carry"], run["inputs"], run["t"],
+                                    n_ticks - 1)
+
+
 def _scan_body(protocol: str, cfg: SMRConfig, n_ticks: int, env: Dict,
                draws, batch: int, device: torch.device,
                reduced: bool = False):
@@ -456,22 +479,14 @@ def _scan_body(protocol: str, cfg: SMRConfig, n_ticks: int, env: Dict,
     On the CPU, and on the card inside ``_eager_on_card()``, the loop runs
     one Python iteration per tick (``_loop_tick``). Otherwise tick 0 runs
     eagerly as the warm-up, and ticks 1 .. n-1 are replays of one tick
-    captured as a CUDA graph (``compile_cache.run``; captured on the
+    captured as a CUDA graph (``compile_cache.start``; captured on the
     first run of its program, replayed by every later one)."""
-    run = _setup(protocol, cfg, n_ticks, env, draws, batch, device, reduced)
-    if device.type != "cuda" or _EAGER_ON_CARD or n_ticks < 2:
-        for _ in range(n_ticks):
-            _warm(run, protocol, cfg)
-        compile_cache.count_eager(n_ticks)
-        return run["carry"], run["trace"]
-    _warm(run, protocol, cfg)                               # the warm-up
-    key = _program_key(protocol, cfg, run["arr"], reduced, run["carry"],
-                       run["inputs"])
-    carry, _ = compile_cache.run(key, protocol,
-                                 _graph_tick(run, protocol, cfg),
-                                 run["carry"], run["inputs"], run["t"],
-                                 n_ticks - 1)
-    return carry, run["trace"]
+    run, replays = _start_scan(protocol, cfg, n_ticks, env, draws, batch,
+                               device, reduced)
+    if replays is not None:
+        replays.step()
+        run["carry"] = replays.finish()
+    return run["carry"], run["trace"]
 
 
 def _weighted_quantile(vals: torch.Tensor, weights: torch.Tensor,
@@ -574,12 +589,13 @@ def _batch_metrics(cfg: SMRConfig, create_t, arr_mean, count, commit_t,
 
 
 def _latency_sketch(cfg: SMRConfig, create_t, arr_mean, count, commit_t,
-                    warmup_frac=0.15) -> Dict:
+                    warmup_frac=0.15):
     """The committed-latency distribution as a 64-bin sketch per lane
     ({"v", "w"} [B, SKETCH_BINS] float32, on the device), over the same
-    measurement window and weights as ``_batch_metrics``. Raises when a
-    lane's in-window weight reaches ``SKETCH_EXACT_WEIGHT``, past which
-    its running sums would not be exact (one read-back, after the run)."""
+    measurement window and weights as ``_batch_metrics``, and the largest
+    lane's in-window weight (0-dim float64, on the device): it must stay
+    below ``SKETCH_EXACT_WEIGHT`` for the running sums to be exact, which
+    ``_check_weight`` asserts once the results are read back."""
     B = count.shape[0]
     n_ticks = netsim.sim_ticks(cfg)
     ok = torch.isfinite(commit_t) & (count > 0) & torch.isfinite(create_t)
@@ -587,14 +603,24 @@ def _latency_sketch(cfg: SMRConfig, create_t, arr_mean, count, commit_t,
     in_win = ok & (commit_t >= warmup_frac * n_ticks)
     w = torch.where(in_win, count, 0.0).reshape(B, -1)
     # lint: allow(dtype-hygiene): an exact total of float32 counts
-    # for the sketch's 2^24 check, read once after the run
-    top = float(w.double().sum(dim=1).max())
+    # for the sketch's 2^24 check, read after the run
+    top = w.double().sum(dim=1).max()
+    # zero-weight rows may hold inf/nan latencies (uncommitted batches);
+    # the sketch masks them instead of multiplying through
+    return dsketch.build(lat_ms.reshape(B, -1), w), top
+
+
+def _check_weight(top: float) -> None:
     if top >= SKETCH_EXACT_WEIGHT:
         raise ValueError(f"a lane's in-window weight {top} reaches 2^24: "
                          "the sketch's float32 running sums would round")
-    # zero-weight rows may hold inf/nan latencies (uncommitted batches);
-    # the sketch masks them instead of multiplying through
-    return dsketch.build(lat_ms.reshape(B, -1), w)
+
+
+def _check_cut(cut: bool) -> None:
+    if cut:
+        raise ValueError("draws replays the closed lanes' counts after the "
+                         "cap, but the cap cut one: the replayed counts are "
+                         "not this run's")
 
 
 def _vc_commit_ticks(cvc_trace: torch.Tensor, r_max: int) -> torch.Tensor:
@@ -615,9 +641,9 @@ def _lane_tables(wlt: Dict, batch: int, device: torch.device) -> Dict:
     think_ticks / cap / closed [B] float32, win_of_tick [B, T] int64."""
     out = {}
     for k in ("rate_of", "closed", "think_ticks", "cap"):
-        out[k] = torch.as_tensor(wlt[k], dtype=torch.float32, device=device)
-    out["win_of_tick"] = torch.as_tensor(wlt["win_of_tick"], device=device
-                                         ).long()
+        out[k] = _device.to_device(wlt[k], device, torch.float32)
+    out["win_of_tick"] = _device.to_device(wlt["win_of_tick"], device,
+                                           torch.int64)
     if out["rate_of"].shape[0] != batch:
         raise ValueError(f"wlt holds {out['rate_of'].shape[0]} lanes, the "
                          f"grid {batch}")
@@ -632,8 +658,11 @@ def make_arrivals(cfg: SMRConfig, mode: WorkloadMode,
     ``draws`` ([B, T, n]; default ``workload.draw_table`` from the seeds),
     closed lanes sample ``epochs`` ([B, n, M] float64; default
     ``workload.epoch_stream`` from the seeds) — unless ``draws`` is given
-    and ``epochs`` is not: then every lane replays ``draws``."""
+    and ``epochs`` is not: then every lane replays ``draws``. What comes
+    from the host goes to the card without waiting on it
+    (``device.to_device``); the draws are made on the card."""
     n_ticks, batch, n = netsim.sim_ticks(cfg), len(seeds), cfg.n_replicas
+    host_wlt = None if mode.trivial else wlt
     if mode.trivial:
         wlt = None
     elif wlt is None:
@@ -643,26 +672,25 @@ def make_arrivals(cfg: SMRConfig, mode: WorkloadMode,
     replay = mode.closed and draws is not None and epochs is None
     if draws is None:
         draws = wlmod.draw_table(rate_per_tick, seeds, n_ticks, n, device,
-                                 wlt)
-    draws = torch.as_tensor(draws, dtype=torch.float32, device=device)
+                                 host_wlt)
+    draws = _device.to_device(draws, device, torch.float32)
     if tuple(draws.shape) != (batch, n_ticks, n):
         raise ValueError(f"draws must be [B, T, n] = {(batch, n_ticks, n)}, "
                          f"got {tuple(draws.shape)}")
     if mode.closed and not replay:
         if epochs is None:
-            epochs = wlmod.epoch_stream(rate_per_tick, seeds, wlt, n_ticks,
-                                        n, device)
+            epochs = wlmod.epoch_stream(rate_per_tick, seeds, host_wlt,
+                                        n_ticks, n, device)
         # lint: allow(dtype-hygiene): the closed lanes' epoch stream
         # is float64 (a time-changed unit-rate Poisson process)
-        epochs = torch.as_tensor(epochs, dtype=torch.float64,
-                                 device=device).contiguous()
+        epochs = _device.to_device(epochs, device,
+                                   torch.float64).contiguous()
         if epochs.dim() != 3 or tuple(epochs.shape[:2]) != (batch, n):
             raise ValueError(f"epochs must be [B, n, M] with (B, n) = "
                              f"{(batch, n)}, got {tuple(epochs.shape)}")
     else:
         epochs = None
-    rate = torch.tensor(list(rate_per_tick), dtype=torch.float32,
-                        device=device)
+    rate = _device.to_device(list(rate_per_tick), device, torch.float32)
     cut = torch.zeros(batch, dtype=torch.bool, device=device) \
         if replay else None
     return wlmod.Arrivals(draws, mode, wlt, rate, epochs, cut)
@@ -698,33 +726,100 @@ def sim_point(protocol: str, cfg: SMRConfig, env: Dict,
     computed by the same operations (bitwise equal to the unreduced
     run's), the keys of ``REDUCED_DROPS`` are neither computed nor
     returned, and ``sketch`` ({"v", "w"} [B, 64], ``_latency_sketch``)
-    takes their place."""
-    check_supported(protocol, cfg, mode)
-    dev = _device.resolve(device)
-    if not isinstance(cfg.delay_horizon_ticks, int):
-        raise ValueError("sim_point needs a resolved horizon; call "
-                         "netsim.resolve_horizon first")
-    n_ticks = netsim.sim_ticks(cfg)
-    batch = len(seeds)
-    env = {k: v.to(dev) for k, v in env.items()}
-    arr = make_arrivals(cfg, mode, rate_per_tick, seeds, dev, wlt, draws,
-                        epochs)
-    st, trace = _scan_body(protocol, cfg, n_ticks, env, arr, batch, dev,
-                           reduced)
-    return _results(protocol, cfg, st, trace, arr, reduced)
+    takes their place.
+
+    ``sim_point`` is ``PointRun`` run to its end and its checks read
+    (``PointResult.checked``); the sweep engine keeps the two apart."""
+    run = PointRun(protocol, cfg, env, rate_per_tick, seeds, draws, mode,
+                   device, wlt, epochs, reduced)
+    run.advance()
+    return run.finish().checked()
+
+
+class PointResult:
+    """A run's results on its device, before anything is read back:
+    ``out`` (``sim_point``'s dict of [B, ...] tensors) and ``checks``,
+    (0-dim flag tensor, function of its host value that raises) pairs
+    ``checked`` reads. ``program`` keeps the captured program the run
+    replayed alive until then (None for an eager run)."""
+
+    def __init__(self, out: Dict,
+                 checks: List[Tuple[torch.Tensor, Callable]],
+                 program=None):
+        self.out, self.checks, self.program = out, checks, program
+
+    def checked(self) -> Dict:
+        """Read the checks' flags back (this waits for the run) and raise
+        as the first failing one says; else return ``out``."""
+        for flag, check in self.checks:
+            check(flag.item())
+        return self.out
+
+
+class PointRun:
+    """One batched grid's tick loop on its device, started and not waited
+    for: the constructor sets the run up (``make_arrivals``) and starts
+    its loop (``_start_scan``: the CPU runs it all; the card runs the
+    warm-up tick, captures the program if it is new, and loads the run
+    into its buffers); ``advance(n)`` enqueues up to ``n`` of the card's
+    replays; ``finish()`` copies the results out and extracts the
+    metrics, all enqueued (``PointResult``). Nothing between the
+    constructor and ``finish`` reads a value of the card back, except a
+    first capture. Arguments as ``sim_point``'s."""
+
+    def __init__(self, protocol: str, cfg: SMRConfig, env: Dict,
+                 rate_per_tick: Sequence[float], seeds: Sequence[int],
+                 draws=None, mode: WorkloadMode = TRIVIAL_MODE, device=None,
+                 wlt: Optional[Dict] = None, epochs=None,
+                 reduced: bool = False):
+        check_supported(protocol, cfg, mode)
+        self.device = dev = _device.resolve(device)
+        if not isinstance(cfg.delay_horizon_ticks, int):
+            raise ValueError("sim_point needs a resolved horizon; call "
+                             "netsim.resolve_horizon first")
+        self.protocol, self.cfg, self.reduced = protocol, cfg, reduced
+        with _device.on(dev):
+            env = {k: _device.to_device(v, dev) for k, v in env.items()}
+            self.arr = make_arrivals(cfg, mode, rate_per_tick, seeds, dev,
+                                     wlt, draws, epochs)
+            self._run, self._replays = _start_scan(
+                protocol, cfg, netsim.sim_ticks(cfg), env, self.arr,
+                len(seeds), dev, reduced)
+
+    def advance(self, n: Optional[int] = None) -> bool:
+        """Enqueue up to ``n`` more replays (all with None); True while
+        some are left."""
+        if self._replays is None:
+            return False
+        with _device.on(self.device):
+            return self._replays.step(n)
+
+    def finish(self) -> PointResult:
+        run, replays = self._run, self._replays
+        with _device.on(self.device):
+            if replays is not None:
+                run["carry"] = replays.finish()
+            res = _results(self.protocol, self.cfg, run["carry"],
+                           run["trace"], self.arr, self.reduced)
+        res.program = None if replays is None else replays.program
+        return res
 
 
 def _results(protocol: str, cfg: SMRConfig, st: Dict, trace: Dict,
-             arr: wlmod.Arrivals, reduced: bool = False) -> Dict:
-    """``sim_point``'s result dict from a run's final carry and trace."""
+             arr: wlmod.Arrivals, reduced: bool = False) -> PointResult:
+    """``sim_point``'s results from a run's final carry and trace, on the
+    device. Its checks, in the order they raise: a replayed closed count
+    the cap cut, a closed lane past its epoch stream, the sketch's
+    weight."""
     n_ticks = netsim.sim_ticks(cfg)
     mode = arr.mode
     wl = st["p" if protocol == "multipaxos" else "m"]["wl"]
-    if arr.cut is not None and bool(arr.cut.any()):
-        raise ValueError("draws replays the closed lanes' counts after the "
-                         "cap, but the cap cut one: the replayed counts are "
-                         "not this run's")
-    wlmod.check_epochs(wl, arr)
+    checks = []
+    if arr.cut is not None:
+        checks.append((arr.cut.any(), _check_cut))
+    overrun = wlmod.epochs_overrun(wl, arr)
+    if overrun is not None:
+        checks.append((overrun, wlmod.raise_if_overrun))
     if protocol == "mandator":
         # dissemination completion = "commit" for availability accounting
         cvc = trace["own_round"]
@@ -754,10 +849,25 @@ def _results(protocol: str, cfg: SMRConfig, st: Dict, trace: Dict,
     if hmon.on(cfg.monitor_level):
         out["mon"] = hmon.public_view(st["mon"], n_ticks)
     if reduced:
-        out["sketch"] = _latency_sketch(
+        out["sketch"], top = _latency_sketch(
             cfg, wl["batch_create_t"], wl["batch_arr_mean"],
             wl["batch_count"], commit_t)
-    return out
+        checks.append((top, _check_weight))
+    return PointResult(out, checks)
+
+
+def run_sim(protocol: str, cfg: SMRConfig, rate_tx_s: float,
+            scenario=None, seed: int = 0, workload=None,
+            canonical: bool = True, device=None, draws=None) -> Dict:
+    """Single-point wrapper over the sweep engine (``experiment.
+    run_sweep``): one rate, seed, scenario (None: fault-free) and workload
+    (None: the §5.2 baseline); returns its row. ``device`` and ``draws``
+    (a [1, T, n] arrival table) as ``run_sweep``'s."""
+    from repro_torch.core.experiment import SweepSpec, run_sweep
+    spec = SweepSpec(rates=(float(rate_tx_s),), seeds=(int(seed),),
+                     scenarios=(scenario,), workloads=(workload,))
+    return run_sweep(protocol, cfg, spec, device=device, draws=draws,
+                     canonical=canonical)[0]
 
 
 def _phase_breakdown(protocol: str, cfg: SMRConfig, wl: Dict, trace: Dict,

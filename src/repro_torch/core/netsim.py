@@ -42,6 +42,12 @@ def sim_ticks(cfg: SMRConfig) -> int:
     return int(cfg.sim_seconds * 1000 / cfg.tick_ms)
 
 
+def env_windows(cfg: SMRConfig, scenario) -> int:
+    """Windowed-table rows this scenario lowers to: the common pad width
+    to pick before stacking envs."""
+    return sc.compile.n_windows(cfg, sc.as_scenario(scenario))
+
+
 def _backlog_bound_ticks(cfg: SMRConfig, min_nic_scale: float) -> float:
     """Upper bound on NIC egress queueing delay (ticks). Batch formation is
     completion-gated, so at most ``mandator_lanes`` maximal batches can
@@ -93,7 +99,8 @@ def resolve_horizon(cfg: SMRConfig, scenarios_=(), tabs=None,
 
 def build_env(cfg: SMRConfig, scenario=None, n_windows: Optional[int] = None,
               tab=None, device=None) -> Dict[str, torch.Tensor]:
-    """One grid point's env as tensors on ``device`` (None = CUDA).
+    """One grid point's env as tensors on ``device`` (None = CUDA); the
+    tables go to the card without waiting on it (``device.to_device``).
     scenario: a repro_torch.scenarios.Scenario or None (fault-free
     baseline). tab: its lowered (unpadded) tables, if the caller already
     has them. Leaves and dtypes equal the reference's ``build_env``."""
@@ -115,13 +122,13 @@ def build_env(cfg: SMRConfig, scenario=None, n_windows: Optional[int] = None,
             f"link + scenario delay ({static_delay:.0f} ticks) exceeds "
             f"delay_horizon_ticks={cfg.delay_horizon_ticks}; raise the "
             "horizon in SMRConfig")
-    f32 = lambda x: torch.as_tensor(  # noqa: E731
-        np.asarray(x, np.float32), device=dev)
+    f32 = lambda x: _device.to_device(  # noqa: E731
+        np.asarray(x, np.float32), dev)
     return {
         "delays": f32(cfg.delays_ms() / cfg.tick_ms),                 # [n,n]
-        "win_of_tick": torch.as_tensor(tab["win_of_tick"], device=dev),
-        "alive_tab": torch.as_tensor(tab["alive"], device=dev),      # [W,n]
-        "drop_tab": torch.as_tensor(tab["drop"], device=dev),      # [W,n,n]
+        "win_of_tick": _device.to_device(tab["win_of_tick"], dev),
+        "alive_tab": _device.to_device(tab["alive"], dev),           # [W,n]
+        "drop_tab": _device.to_device(tab["drop"], dev),           # [W,n,n]
         "delay_tab": f32(tab["extra_delay"]),                        # [W,n,n]
         "nic_tab": f32(tab["nic_scale"]),                            # [W,n]
         "bytes_per_tick": f32(cfg.nic_gbps * 1e9 / 8.0 * cfg.tick_ms

@@ -72,7 +72,7 @@ def init_state(cfg: SMRConfig, n_ticks: int, mandator_mode: bool,
     def z(*s, dtype=I32):
         return torch.zeros((batch, *s), dtype=dtype, device=dev)
 
-    phase1 = torch.as_tensor(_phase1_ticks(cfg), device=dev)
+    phase1 = _device.to_device(_phase1_ticks(cfg), dev)
     # flight recorder and monitor IO: absent when off (see mandator)
     extra = {}
     tr = obs.init_trace(obs.DEFAULT_SPEC, cfg.trace_level, n,

@@ -116,15 +116,22 @@ def init_workload(cfg: SMRConfig, n_ticks: int, batch: int,
     return wl
 
 
+def _host(x) -> np.ndarray:
+    """A table leaf on the host (numpy or a CPU tensor)."""
+    return np.asarray(x.cpu() if isinstance(x, torch.Tensor) else x)
+
+
 def _lane_rates(rate: float, wlt: Optional[Dict], b: int, n_ticks: int,
                 n: int, device: torch.device) -> torch.Tensor:
-    """[T, n] float32 mean per origin per tick of lane b."""
+    """[T, n] float32 mean per origin per tick of lane b; the rate table's
+    float32 multipliers are gathered on the host."""
     lam = torch.full((n_ticks, n), float(rate), dtype=torch.float32,
                      device=device)
     if wlt is None:
         return lam
-    mult = wlt["rate_of"][b][wlt["win_of_tick"][b].long()]
-    return lam * mult.to(device)
+    mult = np.asarray(_host(wlt["rate_of"][b]), np.float32)[
+        _host(wlt["win_of_tick"][b]).astype(np.int64)]
+    return lam * _device.to_device(mult, device)
 
 
 def draw_table(rate_per_tick: Sequence[float], seeds: Sequence[int],
@@ -133,8 +140,9 @@ def draw_table(rate_per_tick: Sequence[float], seeds: Sequence[int],
     """[B, T, n] float32 Poisson arrival counts: lane b draws from its own
     ``torch.Generator`` seeded with ``seeds[b]`` at mean
     ``rate_per_tick[b]`` per origin per tick, times its rate table where
-    ``wlt`` is given. Closed lanes (``wlt["closed"] > 0``) draw nothing
-    here: their rows are zeros (see ``epoch_stream``)."""
+    ``wlt`` is given (the grid's tables on the host: nothing here reads
+    the card). Closed lanes (``wlt["closed"] > 0``) draw nothing here:
+    their rows are zeros (see ``epoch_stream``)."""
     rows = []
     for b, (lam, seed) in enumerate(zip(rate_per_tick, seeds)):
         if wlt is not None and float(wlt["closed"][b]) > 0:
@@ -178,7 +186,8 @@ def epoch_stream(rate_per_tick: Sequence[float], seeds: Sequence[int],
     Poisson processes, one per origin (cumulated Exp(1) gaps from the
     lane's own generator seeded with its seed); open lanes' rows, and
     closed lanes' rows past their own ``epoch_count``, are +inf. M is
-    ``epoch_slots`` of the largest count."""
+    ``epoch_slots`` of the largest count. ``wlt``: the grid's tables on
+    the host."""
     counts = [epoch_count(lam, wlt, b)
               if float(wlt["closed"][b]) > 0 else 0
               for b, lam in enumerate(rate_per_tick)]
@@ -200,17 +209,31 @@ def epoch_stream(rate_per_tick: Sequence[float], seeds: Sequence[int],
     return out
 
 
-def check_epochs(wl: Dict, arr: Arrivals) -> None:
-    """After the run: raise if a closed lane's intensity passed the last
-    epoch drawn for it, its last finite one (its counts would have been
-    cut short). Rows of +inf alone (open lanes) hold no epoch."""
+def epochs_overrun(wl: Dict, arr: Arrivals) -> Optional[torch.Tensor]:
+    """After the run, on the device: a 0-dim bool, set where a closed
+    lane's intensity passed the last epoch drawn for it, its last finite
+    one (its counts would have been cut short). Rows of +inf alone (open
+    lanes) hold no epoch. None when no lane samples a stream."""
     if not arr.sampling:
-        return
+        return None
     finite = torch.isfinite(arr.epochs)
     last = torch.where(finite, arr.epochs, float("-inf")).amax(dim=-1)
-    if bool(((wl["cl_lam_cum"] >= last) & finite.any(dim=-1)).any()):
+    return ((wl["cl_lam_cum"] >= last) & finite.any(dim=-1)).any()
+
+
+def raise_if_overrun(overrun: bool) -> None:
+    """``epochs_overrun``'s flag, read on the host: raise if it is set."""
+    if overrun:
         raise RuntimeError("a closed-loop lane ran past its epoch stream; "
                            "raise workload.EPOCH_SIGMAS")
+
+
+def check_epochs(wl: Dict, arr: Arrivals) -> None:
+    """``epochs_overrun`` read back at once: raise if a closed lane ran
+    past its epoch stream."""
+    flag = epochs_overrun(wl, arr)
+    if flag is not None:
+        raise_if_overrun(bool(flag))
 
 
 def _at_tick(table: torch.Tensor, t: torch.Tensor) -> torch.Tensor:

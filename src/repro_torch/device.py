@@ -6,7 +6,36 @@ caller asks for the CPU explicitly (``device="cpu"``), as the tests do.
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
+
+
+def to_device(x, device, dtype=None) -> torch.Tensor:
+    """Host data (numpy, a list, a CPU tensor) as a tensor on ``device``,
+    cast to ``dtype`` on the host. A copy to the card goes through pinned
+    memory with ``non_blocking=True``, so the host does not wait for the
+    card's queue to drain first; a tensor already on ``device`` passes
+    through (cast if asked)."""
+    if not isinstance(x, torch.Tensor):
+        x = torch.tensor(x)
+    if dtype is not None:
+        x = x.to(dtype)
+    dev = torch.device(device)
+    if x.device == dev or dev.type != "cuda":
+        return x.to(dev)
+    if x.device.type != "cpu":
+        return x.to(dev, non_blocking=True)
+    return x.contiguous().pin_memory().to(dev, non_blocking=True)
+
+
+def on(device) -> contextlib.AbstractContextManager:
+    """Make ``device`` current for the block when it is a card (kernels,
+    streams and graph captures follow the current card); a no-op for the
+    CPU."""
+    dev = torch.device(device)
+    return torch.cuda.device(dev) if dev.type == "cuda" \
+        else contextlib.nullcontext()
 
 
 def resolve(device=None) -> torch.device:

@@ -9,12 +9,11 @@
   - ``obs.decode``  — host-side ring -> per-replica event timelines;
   - ``obs.export``  — Chrome/Perfetto ``trace_event`` JSON (phase spans,
     event instants, throughput + gauge counter tracks) + the per-phase
-    latency table.
-
-The reference's ``obs.history`` (the benchmark ledger and its CI gate)
-belongs with ``benchmarks/``, which the port does not carry yet.
+    latency table;
+  - ``obs.history`` — the append-only ``BENCH_history.jsonl`` ledger and
+    its regression gate (``compare``), stdlib only.
 """
-from repro_torch.obs import decode, export, monitor  # noqa: F401
+from repro_torch.obs import decode, export, history, monitor  # noqa: F401
 from repro_torch.obs.monitor import (  # noqa: F401
     MONITOR_ENV, VIOLATIONS, HostMonitor, MonitorLevel,
 )

@@ -106,7 +106,7 @@ def _bucket_table(tick_ms: float, nb: int, device: torch.device
     length = int(np.ceil(nb * BUCKET_MS / tick_ms)) + 2
     ticks = np.arange(length, dtype=np.float32)
     b = (ticks * np.float32(tick_ms / BUCKET_MS)).astype(np.int64)
-    return torch.as_tensor(np.clip(b, 0, nb - 1), device=device)
+    return _device.to_device(np.clip(b, 0, nb - 1), device)
 
 
 def _bucket(t: torch.Tensor, tick_ms: float, nb: int) -> torch.Tensor:

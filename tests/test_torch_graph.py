@@ -193,8 +193,9 @@ def test_cpu_runs_are_eager_and_counted():
 
 def test_cpu_loop_never_reaches_the_graph(monkeypatch):
     def refuse(*a, **k):
-        raise AssertionError("the CPU loop reached compile_cache.run")
+        raise AssertionError("the CPU loop reached the tick graph")
     monkeypatch.setattr(compile_cache, "run", refuse)
+    monkeypatch.setattr(compile_cache, "start", refuse)
     run_sweep("mandator", SMRConfig(sim_seconds=0.05,
                                     delay_horizon_ticks=256),
               SweepSpec(rates=(10_000,)), device="cpu")
