@@ -100,11 +100,11 @@ Phases, each printed as it ends; any failure exits non-zero:
   7. model kernels — RMSNorm (RMS_CASES: [8192, 576] and [4, 576],
               float32 and bfloat16, with and without residual, float32 and
               bfloat16 weights; d_model 8192; D = 100; x views off a
-              16-byte boundary; each with the kernel's launch plan) and
-              flash attention
+              16-byte boundary; musicgen-medium's [8192, 1536]; each with
+              the kernel's launch plan) and flash attention
               (SmolLM-135M's B=4 S=2048 H=9 Kh=3 D=64 causal, a ragged
               S=1000, qwen3-14b's D=128 H=40 Kh=8, a non-causal S=512,
-              each in float32 (the 3xTF32 tensor-core kernel) and bfloat16
+              musicgen-medium's MHA H=Kh=24 D=64, each in float32 (the 3xTF32 tensor-core kernel) and bfloat16
               (the bf16 tensor-core kernel); each case checks which kernel
               its launch took) against their plain versions, the bf16
               cases also against the kernel's rounding order
@@ -144,8 +144,9 @@ Phases, each printed as it ends; any failure exits non-zero:
               reference's [B, Kh, S, D] layout and on the model cache's
               [B, S, Kh, D] as a view (launch counts read around these two
               calls only), then the kernel against its plain version and
-              SDPA at that shape and at qwen3-14b's (B=8 H=40 Kh=8 D=128
-              S=8192, full and ragged), float32 (the 3xTF32 tensor-core
+              SDPA at that shape, at qwen3-14b's (B=8 H=40 Kh=8 D=128
+              S=8192, full and ragged) and at musicgen-medium's MHA (B=4
+              H=Kh=24 D=64 S=2048, full and ragged), float32 (the 3xTF32 tensor-core
               kernel) and bfloat16, each also against its twin at the
               kernel's split plan, element by element (float32:
               decode_attention_tf32x3_order; bfloat16:
@@ -289,7 +290,30 @@ Phases, each printed as it ends; any failure exits non-zero:
               jamba-1.5-large-398b prefill_32k: seconds, per-device
               bytes, the roofline terms, the dominant one, whether the
               cell fits one H100 80 GB;
- 21. the tick programs of the whole script (captures, their seconds,
+ 21. examples — the slice's two halves: (a) each examples/torch_*.py's
+              main() on the card at the reference script's own sizes: the
+              wan demo's paper tour (Fig 6's ordering, mandator-sporades
+              >= 2x multipaxos >= 2x epaxos >= 2x rabia; a dip after the
+              leader crash at 1.5 s, some bucket below half the one
+              before), --scenario region-outage, --workload closed-loop
+              --scenario paper-ddos and --trace ... --scenario paper-ddos
+              --rate 300000 (obs.export.validate on the trace written);
+              quickstart (a falling loss, every step committed, tokens in
+              range), train_smr_cluster (commits 30, 30, 10, every
+              Sporades record committed) and serve_batch (tokens in
+              range); walls and launches; (b) musicgen-medium at full
+              width and depth (48 layers, d 1536, MHA 24 heads of 64,
+              frame embeddings, 1 815 234 048 params, seed 0): the
+              frame_emb [4, 2048] prefill in f32 (kernels vs plain within
+              1e-3, 48 flash launches on the 3xTF32 kernel and 97 RMSNorm)
+              and in bf16 (48 on the tensor-core kernel; the 1.5x rule
+              against a float32 forward), decode vs the prefill over 64
+              positions at B = 4 within 5e-3 (ms a step, launches, busy
+              share), serve(reduced=False, batch 4, prompt 16, gen 32),
+              peak memory; (c) its kernel cases (flash and decode at
+              H = Kh = 24, D 64, S 2048; RMSNorm at [8192, 1536]) run in
+              phases 7 and 12 beside every other case;
+ 22. the tick programs of the whole script (captures, their seconds,
               replays, the kernels they launched), the card's line, the
               kernels line, then the result line.
 
@@ -1901,7 +1925,9 @@ def phase_reduced(results: dict) -> None:
 # with bfloat16 weights (the bf16 model keeps its norm weights in bf16);
 # Jamba's and qwen1.5-110b's d_model 8192 (a [2, 2048] prefill and a
 # decode step); a D of 100, which no 16-byte vector of bf16 divides; and x
-# views that start 4 and 6 bytes past a 16-byte boundary
+# views that start 4 and 6 bytes past a 16-byte boundary; musicgen-medium's
+# d_model 1536 (its [4, 2048] prefill in f32 and bf16, each with its own
+# weights' dtype, plain and with the residual)
 RMS_CASES = tuple((n, 576, dt, res, "float32", 0) for n in (8192, 4)
                   for dt in ("float32", "bfloat16") for res in (False, True)
                   ) + tuple((n, 576, "bfloat16", res, "bfloat16", 0)
@@ -1912,11 +1938,12 @@ RMS_CASES = tuple((n, 576, dt, res, "float32", 0) for n in (8192, 4)
     (3, 100, "float32", True, "float32", 0),
     (8192, 576, "float32", False, "float32", 1),
     (4, 576, "bfloat16", True, "bfloat16", 3),
-)
+) + tuple((8192, 1536, dt, res, dt, 0) for dt in ("float32", "bfloat16")
+          for res in (False, True))
 RMS_TOL = {"float32": 1e-5, "bfloat16": 3e-2}
 # (name, B, S, H, Kh, D, causal, dtype); at D 64 and 128 the bfloat16
 # cases run the bf16 tensor-core kernel, the float32 ones the 3xTF32
-# tensor-core kernel
+# tensor-core kernel; musicgen-medium's prefill is MHA, a GQA group of 1
 FLASH_CASES = (
     ("smollm-prefill", 4, 2048, 9, 3, 64, True, "float32"),
     ("smollm-prefill-bf16", 4, 2048, 9, 3, 64, True, "bfloat16"),
@@ -1926,6 +1953,8 @@ FLASH_CASES = (
     ("qwen3-14b-D128-bf16", 1, 2048, 40, 8, 128, True, "bfloat16"),
     ("ragged-S1000-bf16", 4, 1000, 9, 3, 64, True, "bfloat16"),
     ("non-causal-bf16", 4, 512, 9, 3, 64, False, "bfloat16"),
+    ("musicgen-prefill", 4, 2048, 24, 24, 64, True, "float32"),
+    ("musicgen-prefill-bf16", 4, 2048, 24, 24, 64, True, "bfloat16"),
 )
 FLASH_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 # bf16 tensor-core kernel against attention_kernel_order, which rounds P
@@ -2641,7 +2670,9 @@ QWEN_LENS = (1, 333, 1024, 2900, 4097, 5555, 7000, 8191)
 # the gap read on an H100 (2^-9 at SmolLM's shape and at qwen3-14b's
 # ragged kv_len, where SDPA is 2^-8 off the plain version; 2^-11 at its
 # full cache, where the outputs, means of ~3 000 keys, lie below 0.1 and a
-# dropped S-split moves them by ~0.02)
+# dropped S-split moves them by ~0.02). musicgen-medium's MHA decode (a
+# GQA group of 1: one useful head of a block of 8 in the float32 kernel)
+# takes the rules of its S = 2048: 5e-6 and SmolLM's 8e-3
 DECODE_CASES = (
     ("smollm-decode", 4, 9, 3, 64, 2048, SMOLLM_LENS, "float32", 5e-6),
     ("smollm-decode-bf16", 4, 9, 3, 64, 2048, SMOLLM_LENS, "bfloat16",
@@ -2650,6 +2681,11 @@ DECODE_CASES = (
     ("qwen3-14b-full-bf16", 8, 40, 8, 128, 8192, None, "bfloat16", 4e-3),
     ("qwen3-14b-ragged", 8, 40, 8, 128, 8192, QWEN_LENS, "float32", 1e-5),
     ("qwen3-14b-ragged-bf16", 8, 40, 8, 128, 8192, QWEN_LENS, "bfloat16",
+     8e-3),
+    ("musicgen-full", 4, 24, 24, 64, 2048, None, "float32", 5e-6),
+    ("musicgen-full-bf16", 4, 24, 24, 64, 2048, None, "bfloat16", 8e-3),
+    ("musicgen-ragged", 4, 24, 24, 64, 2048, SMOLLM_LENS, "float32", 5e-6),
+    ("musicgen-ragged-bf16", 4, 24, 24, 64, 2048, SMOLLM_LENS, "bfloat16",
      8e-3))
 # each decode kernel against its twin at the kernel's split plan, element
 # by element, max abs. bfloat16 (decode_attention_kernel_order): about 4x
@@ -4254,6 +4290,381 @@ def phase_mesh(results: dict) -> None:
     results["mesh"] = res
 
 
+# ---------------------------------------------------------------------------
+# slice 16: the examples through the port and the audio family (phase 21)
+# ---------------------------------------------------------------------------
+
+MUSICGEN_ARCH, MUSICGEN_PARAMS = "musicgen-medium", 1_815_234_048
+MUSICGEN_B, MUSICGEN_S = 4, 2048             # the prefill's frames
+MUSICGEN_DECODE = 64                         # decode positions vs prefill
+# the wan demo's Fig-6 ordering: each protocol's saturation throughput at
+# least this many times the next one's (mandator-sporades > multipaxos >
+# epaxos > rabia)
+FIG6_FACTOR = 2.0
+# a leader crash's dip: some bucket from the crash on below this share of
+# the last bucket before it
+CRASH_DIP = 0.5
+
+
+def _example(name: str):
+    """examples/<name>.py as a module, imported by its path."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"_example_{name}", ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _run_example(tag: str, fn, *args, **kw):
+    """(its result, wall s, its printed lines): ``fn`` run with its
+    standard output caught; each line is logged after it returns."""
+    import contextlib
+    import io
+
+    import torch
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    lines = buf.getvalue().splitlines()
+    for line in lines:
+        log("examples", f"{tag} | {line}")
+    log("examples", f"{tag}: {wall!r} s")
+    return out, wall, lines
+
+
+def examples_on_card() -> dict:
+    """(a) Each examples/torch_*.py on the card at the reference script's
+    own sizes, and the checks the reference scripts make."""
+    import json
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.obs import export
+
+    wan = _example("torch_wan_consensus_demo")
+    out = {}
+    _reset_counts()
+    tour, out["paper_tour_s"], _ = _run_example("wan paper tour",
+                                                wan.main, [])
+    thr = {p: float(r["throughput"]) for p, r in tour["tour"].items()}
+    order = ("mandator-sporades", "multipaxos", "epaxos", "rabia")
+    for hi, lo in zip(order, order[1:]):
+        if not thr[hi] >= FIG6_FACTOR * thr[lo]:
+            raise AssertionError(f"Fig-6 ordering: {hi} {thr[hi]} tx/s not "
+                                 f">= {FIG6_FACTOR} x {lo} {thr[lo]}")
+    crash_bucket = int(1.5 / 0.5)                # the crash at 1.5 s
+    dips = {}
+    for p, r in tour["crash"].items():
+        tl = np.asarray(r["timeline"], np.float64)
+        dips[p] = float(tl[crash_bucket:].min() / tl[crash_bucket - 1])
+        if not dips[p] < CRASH_DIP:
+            raise AssertionError(f"{p}: no dip after the leader crash: "
+                                 f"timeline {tl.tolist()}")
+    out["tour_throughput"] = thr
+    out["crash_dip"] = dips
+    out["tour_medians_ms"] = {p: float(r["median_ms"])
+                              for p, r in tour["tour"].items()}
+
+    rows, out["region_outage_s"], _ = _run_example(
+        "wan --scenario region-outage", wan.main,
+        ["--scenario", "region-outage"])
+    rows2, out["closed_loop_ddos_s"], _ = _run_example(
+        "wan --workload closed-loop --scenario paper-ddos", wan.main,
+        ["--workload", "closed-loop", "--scenario", "paper-ddos"])
+    with tempfile.TemporaryDirectory() as d:
+        path = str(Path(d) / "ddos.json")
+        rows3, out["trace_s"], _ = _run_example(
+            "wan --trace --scenario paper-ddos --rate 300000", wan.main,
+            ["--trace", path, "--scenario", "paper-ddos", "--rate",
+             "300000"])
+        trace = json.loads(Path(path).read_text())
+    export.validate(trace)
+    out["trace_events"] = len(trace["traceEvents"])
+    for what, rs in (("region-outage", rows), ("closed-loop", rows2),
+                     ("trace", {k: v for k, v in rows3.items()
+                                if k != "trace"})):
+        for p, r in rs.items():
+            if not (r["committed"] > 0 and math.isfinite(r["throughput"])):
+                raise AssertionError(f"{what} {p}: committed "
+                                     f"{r['committed']}, throughput "
+                                     f"{r['throughput']}")
+    if any(r.get("inflight_max") is None for r in rows2.values()):
+        raise AssertionError("closed-loop rows without inflight_max")
+    out["throughput"] = {
+        "region-outage": {p: float(r["throughput"]) for p, r in rows.items()},
+        "closed-loop-ddos": {p: float(r["throughput"])
+                             for p, r in rows2.items()}}
+    counts = _counts()
+    out["launches"] = {k: v for k, v in counts.items() if k != "_programs"}
+    out["programs"] = counts["_programs"]
+    log("examples", f"wan demo: Fig-6 throughput {thr}, dips after the "
+                    f"crash (least bucket / the bucket before) {dips}, "
+                    f"trace {out['trace_events']} events valid; launches "
+                    f"{out['launches']}, tick programs {out['programs']}")
+    if not counts["channel_ring_commit_graph"] > 0:
+        raise AssertionError(f"the wan demo ran no commit kernel: {counts}")
+
+    _reset_counts()
+    qs, out["quickstart_s"], _ = _run_example(
+        "quickstart", _example("torch_quickstart").main, [])
+    vocab = get_config("smollm-135m").reduced().vocab
+    toks = qs["serve"]["tokens"]
+    if qs["first"]["commits"] != [60] or qs["resumed"]["commits"] != [20] \
+            or len(qs["resumed"]["losses"]) != 20:
+        raise AssertionError(f"quickstart commits {qs['first']['commits']}, "
+                             f"{qs['resumed']['commits']}")
+    if toks.shape != (2, 16) or not ((toks >= 0) & (toks < vocab)).all():
+        raise AssertionError(f"quickstart decoded {toks.shape}")
+    out["quickstart_loss"] = (qs["first"]["losses"][0],
+                              qs["first"]["losses"][-1])
+    cl, out["train_smr_cluster_s"], _ = _run_example(
+        "train_smr_cluster", _example("torch_train_smr_cluster").main, [])
+    if cl["train"]["commits"] != [30, 30, 10] or \
+            any(r is None for r in cl["records"]):
+        raise AssertionError(f"train_smr_cluster commits "
+                             f"{cl['train']['commits']}, records "
+                             f"{cl['records']}")
+    sb, out["serve_batch_s"], _ = _run_example(
+        "serve_batch", _example("torch_serve_batch").main, [])
+    for arch, res in sb.items():
+        v = get_config(arch).reduced().vocab
+        t = res["tokens"]
+        if t.shape != (2, 12) or not ((t >= 0) & (t < v)).all():
+            raise AssertionError(f"serve_batch {arch}: {t.shape}")
+    out["serve_batch_tokens_s"] = {a: r["seconds"] for a, r in sb.items()}
+    counts = {k: v for k, v in _counts().items() if k != "_programs"}
+    log("examples", f"model examples: quickstart loss "
+                    f"{out['quickstart_loss']}, every step committed; "
+                    f"cluster commits {cl['train']['commits']}; launches "
+                    f"{counts}")
+    return out
+
+
+def musicgen_on_card() -> dict:
+    """(b) musicgen-medium at full width and depth, random weights from
+    seed 0: the f32 [4, 2048] frame prefill with the kernels against the
+    plain path, decode against the prefill over MUSICGEN_DECODE positions,
+    the bf16 prefill by the 1.5x rule, serve() at full width."""
+    import copy
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import (CallConfig, forward_decode,
+                                    forward_train, init_cache, init_params,
+                                    param_count_actual)
+
+    cfg = get_config(MUSICGEN_ARCH)
+    f32, bf16 = torch.float32, torch.bfloat16
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out = {}
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    frames = 0.02 * torch.randn((MUSICGEN_B, MUSICGEN_S, cfg.d_model),
+                                generator=gen, device="cuda")
+    n_tok = MUSICGEN_B * MUSICGEN_S
+    want_rms = 2 * cfg.n_layers + 1
+
+    def run(params, call, b):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, _ = forward_train(params, cfg, call, b)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, logits
+
+    def check_launches(what, counts, routes, route):
+        if counts["flash_attention"] != cfg.n_layers or \
+                routes[route] != cfg.n_layers or \
+                counts["rmsnorm"] != want_rms:
+            raise AssertionError(f"musicgen {what}: expected "
+                                 f"{cfg.n_layers} flash ({route}) and "
+                                 f"{want_rms} rmsnorm launches, got "
+                                 f"{counts} {routes}")
+
+    # float32: kernels against the plain path, then decode vs prefill
+    params = init_params(cfg, 0, dtype=f32)
+    n_params = param_count_actual(params)
+    if n_params != MUSICGEN_PARAMS:
+        raise AssertionError(f"{MUSICGEN_ARCH} has {n_params} params")
+    call = CallConfig(compute_dtype=f32, attention_impl="pallas",
+                      use_pallas_norm=True, remat=False)
+    plain = dataclasses.replace(call, kernel_backend="ref")
+    batch = {"frame_emb": frames}
+    with torch.no_grad():
+        warm = {"frame_emb": frames[:, :128]}
+        forward_train(params, cfg, call, warm)             # first calls
+        forward_train(params, cfg, plain, warm)
+        _reset_counts()
+        wall, logits = run(params, call, batch)
+        counts = _counts()
+        routes = dict(fk.route_counts)
+        wall_plain, logits_plain = run(params, plain, batch)
+    diff = (logits - logits_plain).abs().max().item()
+    ok = bool(torch.isfinite(logits).all())
+    shape = tuple(logits.shape)
+    ref = logits[:, :MUSICGEN_DECODE].clone()
+    del logits, logits_plain
+    log("examples", f"(b) {MUSICGEN_ARCH} full width and depth ({n_params} "
+                    f"params, {cfg.n_layers} layers, H = Kh = "
+                    f"{cfg.n_heads}, D {cfg.head_dim}), frame_emb "
+                    f"[{MUSICGEN_B}, {MUSICGEN_S}, {cfg.d_model}] float32: "
+                    f"kernels {wall!r} s = {n_tok / wall!r} frames/s; plain "
+                    f"{wall_plain!r} s; logits max abs diff {diff!r} (tol "
+                    f"{LOGITS_TOL}); launches {counts}, flash by kernel "
+                    f"{routes}")
+    if not ok or shape != (MUSICGEN_B, MUSICGEN_S, cfg.vocab):
+        raise AssertionError(f"musicgen prefill logits {shape}, finite {ok}")
+    if not diff <= LOGITS_TOL:
+        raise AssertionError(f"musicgen prefill, kernels vs plain: {diff}")
+    check_launches("f32 prefill", counts, routes, "tf32")
+    out["prefill_f32"] = {"wall_s": wall, "frames_per_s": n_tok / wall,
+                          "plain_wall_s": wall_plain, "logits_diff": diff,
+                          "launches": counts, "flash_routes": routes}
+
+    cache = init_cache(cfg, MUSICGEN_B, MUSICGEN_DECODE, f32)
+
+    def step(t):
+        return forward_decode(params, cfg, call,
+                              {"frame_emb": frames[:, t:t + 1]}, cache, t)[0]
+
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        _reset_counts()
+        errs = []
+        t0 = time.perf_counter()
+        for t in range(MUSICGEN_DECODE):
+            errs.append((step(t) - ref[:, t]).abs().max())
+        torch.cuda.synchronize()
+        dwall = time.perf_counter() - t0
+        dcounts = _counts()
+        worst = torch.stack(errs).max().item()
+        window = range(MUSICGEN_DECODE - DECODE_PROFILE_STEPS,
+                       MUSICGEN_DECODE)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for t in window:
+            step(t)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / len(window)
+        launches, dev_ms, top = _profile_window(
+            lambda: [step(t) for t in window], len(window))
+    ms_step = dwall / MUSICGEN_DECODE * 1e3
+    busy = dev_ms / wall_ms if dev_ms > 0 else None
+    log("examples", f"(b) decode {MUSICGEN_DECODE} positions at B = "
+                    f"{MUSICGEN_B}, float32: {ms_step!r} ms/step; logits vs "
+                    f"prefill max abs {worst!r} (tol {DECODE_TOL}); "
+                    f"launches {dcounts}; steps {window.start}-"
+                    f"{window.stop - 1} untraced {wall_ms!r} ms/step, traced "
+                    f"{launches!r} device events/step, device busy "
+                    f"{dev_ms!r} ms/step (busy share {busy!r})")
+    for e in top:
+        log("examples", f"  {e.self_device_time_total / len(window)!r} "
+                        f"us/step x{e.count / len(window):g}/step  "
+                        f"{e.key[:90]}")
+    if not worst <= DECODE_TOL:
+        raise AssertionError(f"musicgen decode off the prefill: {worst}")
+    if dcounts["rmsnorm"] != want_rms * MUSICGEN_DECODE or \
+            dcounts["flash_attention"]:
+        raise AssertionError(f"musicgen decode launches {dcounts}")
+    out["decode"] = {"ms_per_step": ms_step, "max_diff": worst,
+                     "launches": dcounts, "window_ms": wall_ms,
+                     "launches_per_step": launches,
+                     "device_ms_per_step": dev_ms, "busy_share": busy}
+    del params, cache, ref
+    torch.cuda.empty_cache()
+
+    # bf16 weights and compute: kernels and plain each against a float32
+    # forward of the same weights
+    p16 = init_params(cfg, 0, dtype=bf16)
+    call16 = dataclasses.replace(call, compute_dtype=bf16)
+    plain16 = dataclasses.replace(call16, kernel_backend="ref")
+    with torch.no_grad():
+        p32 = copy.deepcopy(p16).float()
+        _, exact = run(p32, dataclasses.replace(plain16, compute_dtype=f32),
+                       batch)
+        del p32
+        torch.cuda.empty_cache()
+        warm = {"frame_emb": frames[:, :128]}
+        forward_train(p16, cfg, call16, warm)
+        forward_train(p16, cfg, plain16, warm)
+        _reset_counts()
+        wall16, k16 = run(p16, call16, batch)
+        counts16 = _counts()
+        routes16 = dict(fk.route_counts)
+        walls16 = [wall16] + [run(p16, call16, batch)[0] for _ in range(2)]
+        plain_walls16 = [run(p16, plain16, batch)[0] for _ in range(3)]
+        _, q16 = run(p16, plain16, batch)
+        plaunches, pdev_ms, _ = _profile_window(
+            lambda: forward_train(p16, cfg, call16, batch), 1)
+    errs16 = _bf16_errors(k16, q16, exact)
+    scale = exact.abs().max().item()
+    diff16 = (k16 - q16).abs().max().item()
+    ok16 = bool(torch.isfinite(k16).all())
+    del k16, q16, exact, p16
+    torch.cuda.empty_cache()
+    w16 = statistics.median(walls16)
+    log("examples", f"(b) bf16 prefill: kernels {walls16!r} s, median "
+                    f"{w16!r} s = {n_tok / w16!r} frames/s; plain "
+                    f"{plain_walls16!r} s; logits vs a float32 forward "
+                    f"(max |logit| {scale!r}): kernels {errs16['kernels']}, "
+                    f"plain {errs16['plain']} (ratio at most "
+                    f"{LOGITS_BF16_RATIO}); kernels vs plain {diff16!r}; "
+                    f"launches {counts16}, flash by kernel {routes16}; one "
+                    f"forward profiled: {plaunches!r} device events, busy "
+                    f"{pdev_ms!r} ms of {w16 * 1e3!r} ms")
+    if not ok16:
+        raise AssertionError("musicgen bf16 prefill logits are not finite")
+    check_launches("bf16 prefill", counts16, routes16, "tc")
+    out["prefill_bf16"] = {"wall_s": w16, "walls_s": walls16,
+                           "frames_per_s": n_tok / w16,
+                           "plain_walls_s": plain_walls16,
+                           "logits_err_vs_f32": errs16,
+                           "logits_scale": scale, "logits_diff": diff16,
+                           "launches": counts16, "flash_routes": routes16,
+                           "profile_events": plaunches,
+                           "device_ms": pdev_ms,
+                           "busy_share": (pdev_ms / (w16 * 1e3)
+                                          if pdev_ms > 0 else None)}
+
+    _reset_counts()
+    served = serve(MUSICGEN_ARCH, reduced=False, batch=4, prompt_len=16,
+                   gen=32, verbose=False)
+    toks = served["tokens"]
+    n_steps = 16 + 32 - 1
+    log("examples", f"(b) serve({MUSICGEN_ARCH!r}, reduced=False, batch=4, "
+                    f"prompt_len=16, gen=32): {served['seconds']!r} s = "
+                    f"{served['seconds'] / n_steps * 1e3!r} ms a decode "
+                    f"step ({n_steps} steps), tokens {toks.shape}, first "
+                    f"{toks[0, :16].tolist()}")
+    if toks.shape != (4, 32) or not ((toks >= 0) & (toks < cfg.vocab)).all():
+        raise AssertionError(f"musicgen serve returned {toks.shape}")
+    out["serve_s"] = served["seconds"]
+    out["serve_ms_per_step"] = served["seconds"] / n_steps * 1e3
+    out["params"] = n_params
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    log("examples", f"(b) peak memory {out['peak_bytes']} B")
+    return out
+
+
+def phase_examples(results: dict) -> None:
+    """Phase 21: (a) the four examples on the card, (b) musicgen-medium at
+    full width and depth; (c), its kernel cases, ran in phases 7 and 12."""
+    out = examples_on_card()
+    out["musicgen"] = musicgen_on_card()
+    results["examples"] = out
+
+
 def _case(cases: list, name: str) -> dict:
     return next(c for c in cases if c["case"] == name)
 
@@ -4268,6 +4679,7 @@ def kernel_entries(results: dict) -> list:
     dec16 = _case(results["decode_attention"], "qwen3-14b-full-bf16")
     red = results["reduced"]
     sk = red["mandator-sporades"]["kernel"]
+    mg = results["examples"]["musicgen"]
     return [{
         "name": "channel_ring_commit",
         "route": "cuda",
@@ -4323,6 +4735,11 @@ def kernel_entries(results: dict) -> list:
         "launches_vision_prefill":
             results["vision"]["prefill"]["launches"]["rmsnorm"],
         "vision_prefill_case": results["vision"]["rmsnorm"],
+        "launches_musicgen": {
+            "prefill_f32": mg["prefill_f32"]["launches"]["rmsnorm"],
+            "prefill_bf16": mg["prefill_bf16"]["launches"]["rmsnorm"],
+            "decode_step": mg["decode"]["launches"]["rmsnorm"]
+            / MUSICGEN_DECODE},
         "cases": results["rmsnorm"],
     }, {
         "name": "flash_attention",
@@ -4352,6 +4769,9 @@ def kernel_entries(results: dict) -> list:
         "launches_vision_prefill":
             results["vision"]["prefill"]["launches"]["flash_attention"],
         "vision_prefill_case": results["vision"]["flash"],
+        "launches_musicgen_prefill": {
+            "f32": mg["prefill_f32"]["flash_routes"],
+            "bf16": mg["prefill_bf16"]["flash_routes"]},
         "cases": results["flash"],
     }, {
         "name": "ssm_scan",
@@ -4512,6 +4932,7 @@ def run_phases(results: dict, timed) -> None:
     timed("xlstm", phase_xlstm, results)
     timed("vision", phase_vision, results)
     timed("mesh", phase_mesh, results)
+    timed("examples", phase_examples, results)
     _reset_counts()
     from repro_torch.core import compile_cache
     tot = _PROGRAM_TOTALS

@@ -12,8 +12,9 @@ inputs and weights carried across:
 - ``loss_fn``'s value and its full gradient tree (``convert.
   model_params_to_reference`` of the grads) against
   ``jax.value_and_grad`` within 1e-4 relative, for dense, MoE (arctic's
-  dense residual) and hybrid (jamba: Mamba, attention, MoE) configs, and
-  with a ``loss_mask`` and the chunked attention route;
+  dense residual), hybrid (jamba: Mamba, attention, MoE) and audio
+  (musicgen: frame embeddings in place of tokens, no embedding table)
+  configs, and with a ``loss_mask`` and the chunked attention route;
 - the hand-written kernels' routes (``attention_impl="pallas"``,
   ``use_pallas_norm``, ``mamba_forward(use_kernel=True)``) raising
   NotImplementedError under autograd, as the reference's ``jax.grad``
@@ -133,16 +134,21 @@ def _leaves(tree, prefix=""):
     ("qwen3-14b", "chunked", False),
     ("arctic-480b", "dense", False),
     ("jamba-1.5-large-398b", "dense", False),
+    ("musicgen-medium", "dense", False),
+    ("musicgen-medium", "chunked", True),
 ])
 def test_loss_fn_grads_match_reference(arch, impl, masked):
     jcfg, cfg, jparams, params = _setup(arch)
     rs = np.random.RandomState(2)
     b, s = 2, 32
-    tokens = rs.randint(0, cfg.vocab, (b, s)).astype(np.int32)
+    if cfg.embed_inputs:
+        key, x = "tokens", rs.randint(0, cfg.vocab, (b, s)).astype(np.int32)
+    else:
+        key, x = "frame_emb", (0.1 * rs.standard_normal(
+            (b, s, cfg.d_model))).astype(np.float32)
     labels = rs.randint(0, cfg.vocab, (b, s)).astype(np.int32)
-    jbatch = {"tokens": jnp.asarray(tokens), "labels": jnp.asarray(labels)}
-    batch = {"tokens": torch.from_numpy(tokens),
-             "labels": torch.from_numpy(labels)}
+    jbatch = {key: jnp.asarray(x), "labels": jnp.asarray(labels)}
+    batch = {key: torch.from_numpy(x), "labels": torch.from_numpy(labels)}
     if masked:
         mask = (rs.random_sample((b, s)) < 0.7).astype(np.float32)
         jbatch["loss_mask"] = jnp.asarray(mask)

@@ -1,6 +1,7 @@
-"""The port stands alone: src/repro_torch and chip_smoke.py import neither
-JAX nor anything of the JAX package ``repro``, and the entry points do not
-fall back to the CPU on their own."""
+"""The port stands alone: src/repro_torch, chip_smoke.py and the port's
+examples (examples/torch_*.py) import neither JAX nor anything of the JAX
+package ``repro``, and the entry points do not fall back to the CPU on
+their own."""
 import ast
 import subprocess
 import sys
@@ -11,10 +12,21 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
+EXAMPLES = sorted((ROOT / "examples").glob("torch_*.py"))
 
 
 def _port_files():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + EXAMPLES
+
+
+def _example(path):
+    """An example script as a module, imported by its path."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(f"_example_{path.stem}",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def _forbidden(module: str) -> bool:
@@ -39,7 +51,7 @@ def test_no_jax_or_reference_imports(path):
 
 def test_every_module_imports_without_jax():
     """In a fresh interpreter where importing jax or repro fails, every
-    repro_torch module and chip_smoke import."""
+    repro_torch module, chip_smoke and each examples/torch_*.py import."""
     code = (
         "import sys, importlib, pkgutil\n"
         "for m in ('jax', 'jaxlib', 'repro'):\n"
@@ -50,6 +62,10 @@ def test_every_module_imports_without_jax():
         "for m in mods:\n"
         "    importlib.import_module(m)\n"
         "import chip_smoke\n"
+        "import importlib.util\n"
+        f"for p in {[str(p) for p in EXAMPLES]!r}:\n"
+        "    s = importlib.util.spec_from_file_location('ex', p)\n"
+        "    s.loader.exec_module(importlib.util.module_from_spec(s))\n"
         "assert not any(k == 'jax' or k.startswith(('jax.', 'repro.'))\n"
         "               for k, v in sys.modules.items() if v is not None)\n"
         "print(len(mods))\n")
@@ -58,6 +74,7 @@ def test_every_module_imports_without_jax():
                          text=True, env=env, cwd=ROOT, timeout=120)
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.strip()) >= 50
+    assert len(EXAMPLES) == 4
 
 
 def test_entry_points_default_to_cuda():
@@ -93,3 +110,8 @@ def test_entry_points_default_to_cuda():
                                     verbose=False)):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
+    # each example's main() without --device (an empty argv: pytest's own
+    # arguments are not the example's)
+    for path in EXAMPLES:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            _example(path).main([])

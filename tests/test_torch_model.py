@@ -1,6 +1,9 @@
 """The port's dense decoder LM against the reference's, for reduced
-smollm-135m (GQA, tied head) and reduced qwen3-14b (qk-norm, untied head),
-with the reference's weights carried across by ``convert``:
+smollm-135m (GQA, tied head), reduced qwen3-14b (qk-norm, untied head) and
+reduced musicgen-medium (the audio family: frame embeddings [B, S, D] in
+place of tokens, no embedding table), the last also as MHA (its published
+n_kv_heads = n_heads, a GQA group of 1; ``reduced()`` leaves it GQA), with
+the reference's weights carried across by ``convert``:
 
 - ``forward_train`` logits under "dense", "chunked" (both the flash_chunked
   and the padded chunked path) and "pallas" + use_pallas_norm, against the
@@ -33,7 +36,11 @@ from repro_torch.configs import get_config, param_count
 from repro_torch.models import (CallConfig, forward_decode, forward_train,
                                 init_cache, init_params, param_count_actual)
 
-ARCHS = ("smollm-135m", "qwen3-14b")
+ARCHS = ("smollm-135m", "qwen3-14b", "musicgen-medium",
+         "musicgen-medium-mha")
+# test-only variants: (the arch, the fields replaced in its reduced config)
+VARIANTS = {"musicgen-medium-mha": ("musicgen-medium",
+                                    {"n_heads": 4, "n_kv_heads": 4})}
 TOL = 1e-4
 CPU = "cpu"
 # (attention_impl, attn_chunk, use_pallas_norm): chunk 16 divides S=32, so
@@ -52,14 +59,47 @@ def _calls(impl, chunk, pallas_norm):
             CallConfig(compute_dtype=torch.float32, **kw))
 
 
+def _reduced(arch):
+    """(the reference's, the port's) reduced config of ``arch`` or of a
+    VARIANTS entry."""
+    base, fields = VARIANTS.get(arch, (arch, {}))
+    return tuple(dataclasses.replace(get(base).reduced(), **fields)
+                 for get in (jax_get_config, get_config))
+
+
+def _inputs(cfg, b, s, seed):
+    """tokens [b, s] or, for a config without an embedding table,
+    frame_emb [b, s, d_model] float32 ~ 0.1 N(0, 1) (the reference's
+    tests/test_models.py scale)."""
+    rs = np.random.RandomState(seed)
+    if cfg.embed_inputs:
+        return rs.randint(0, cfg.vocab, (b, s))
+    return (0.1 * rs.standard_normal((b, s, cfg.d_model))).astype(np.float32)
+
+
+def _key(cfg):
+    return "tokens" if cfg.embed_inputs else "frame_emb"
+
+
+def _jbatch(cfg, x):
+    return {_key(cfg): jnp.asarray(x)}
+
+
+def _batch(cfg, x):
+    return {_key(cfg): torch.from_numpy(x)}
+
+
+def _step(x, t):
+    """Decode step t's input: tokens [B] or frame_emb [B, 1, D]."""
+    return x[:, t] if x.ndim == 2 else x[:, t:t + 1]
+
+
 def _setup(arch, b, s, seed=0):
-    jcfg = jax_get_config(arch).reduced()
-    cfg = get_config(arch).reduced()
+    jcfg, cfg = _reduced(arch)
     jparams = jax_init_params(jcfg, jax.random.PRNGKey(seed))
     params = convert.model_params_from_reference(
         jax.tree.map(np.asarray, jparams), cfg, device=CPU)
-    tokens = np.random.RandomState(seed).randint(0, cfg.vocab, (b, s))
-    return jcfg, cfg, jparams, params, tokens
+    return jcfg, cfg, jparams, params, _inputs(cfg, b, s, seed)
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -67,11 +107,9 @@ def _setup(arch, b, s, seed=0):
 def test_forward_train_matches_reference(arch, impl, chunk, pallas_norm):
     jcfg, cfg, jparams, params, tokens = _setup(arch, 2, 32)
     jcall, call = _calls(impl, chunk, pallas_norm)
-    want, _ = jax_forward(jparams, jcfg, jcall,
-                          {"tokens": jnp.asarray(tokens)})
+    want, _ = jax_forward(jparams, jcfg, jcall, _jbatch(cfg, tokens))
     with torch.no_grad():
-        got, aux = forward_train(params, cfg, call,
-                                 {"tokens": torch.from_numpy(tokens)})
+        got, aux = forward_train(params, cfg, call, _batch(cfg, tokens))
     assert got.shape == (2, 32, cfg.vocab) and got.dtype == torch.float32
     assert float(aux) == 0.0
     err = float(np.max(np.abs(got.numpy() - np.asarray(want))))
@@ -88,15 +126,13 @@ def test_decode_loop_matches_reference(arch, impl, chunk, pallas_norm):
     jcache = jax_init_cache(jcfg, b, s, jnp.float32)
     cache = init_cache(cfg, b, s, torch.float32, device=CPU)
     with torch.no_grad():
-        prefill, _ = forward_train(params, cfg, call,
-                                   {"tokens": torch.from_numpy(tokens)})
+        prefill, _ = forward_train(params, cfg, call, _batch(cfg, tokens))
     errs, self_errs = [], []
     for t in range(s):
-        jl, jcache = jax_decode(jparams, jcfg, jcall,
-                                {"tokens": jnp.asarray(tokens[:, t])},
+        step = _step(tokens, t)
+        jl, jcache = jax_decode(jparams, jcfg, jcall, _jbatch(cfg, step),
                                 jcache, jnp.int32(t))
-        lg, cache = forward_decode(params, cfg, call,
-                                   {"tokens": torch.from_numpy(tokens[:, t])},
+        lg, cache = forward_decode(params, cfg, call, _batch(cfg, step),
                                    cache, t)
         assert lg.shape == (b, cfg.vocab)
         errs.append(float(np.max(np.abs(lg.numpy() - np.asarray(jl)))))
@@ -220,11 +256,11 @@ def test_gqa_expand_kv_matches_reference(arch):
               gqa_expand_kv=True)
     want, _ = jax_forward(jparams, jcfg,
                           JaxCall(compute_dtype=jnp.float32, **kw),
-                          {"tokens": jnp.asarray(tokens)})
+                          _jbatch(cfg, tokens))
     with torch.no_grad():
         got, _ = forward_train(params, cfg,
                                CallConfig(compute_dtype=torch.float32, **kw),
-                               {"tokens": torch.from_numpy(tokens)})
+                               _batch(cfg, tokens))
     assert float(np.max(np.abs(got.numpy() - np.asarray(want)))) < TOL
 
 
@@ -236,22 +272,21 @@ def test_bf16_forward_matches_reference(arch, impl, chunk, pallas_norm):
     layer scan needs one dtype). Every product's output rounds to bf16 in
     both packages, at places an ulp apart, so the bound is 2^-5 of the
     largest logit (about four bf16 ulps there; measured up to two)."""
-    jcfg = jax_get_config(arch).reduced()
-    cfg = get_config(arch).reduced()
+    jcfg, cfg = _reduced(arch)
     jparams = jax_init_params(jcfg, jax.random.PRNGKey(0), jnp.bfloat16)
     params = convert.model_params_from_reference(
         jax.tree.map(np.asarray, jparams), cfg, device=CPU)
     assert params.final_norm.dtype == torch.bfloat16
-    tokens = np.random.RandomState(0).randint(0, cfg.vocab, (2, 32))
+    tokens = _inputs(cfg, 2, 32, 0)
     kw = dict(attention_impl=impl, attn_chunk=chunk,
               use_pallas_norm=pallas_norm, remat=False)
     want, _ = jax_forward(jparams, jcfg,
                           JaxCall(compute_dtype=jnp.bfloat16, **kw),
-                          {"tokens": jnp.asarray(tokens)})
+                          _jbatch(cfg, tokens))
     with torch.no_grad():
         got, _ = forward_train(params, cfg,
                                CallConfig(compute_dtype=torch.bfloat16, **kw),
-                               {"tokens": torch.from_numpy(tokens)})
+                               _batch(cfg, tokens))
     assert got.dtype == torch.float32
     want = np.asarray(want)
     err = float(np.max(np.abs(got.numpy() - want)))

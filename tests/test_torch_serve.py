@@ -7,7 +7,10 @@ stops at the first step where it does not (a near tie may go either way,
 and the sequences then part). The tolerance is 1e-4, and 2e-3 for
 xlstm-1.3b, whose float32 logits are determined only to about 1e-3 (the
 reference's own logits move by up to 3.4e-3 when its embeddings move by
-one ulp; ``tests/xlstm_spread.py``, ``tests/test_torch_xlstm.py``)."""
+one ulp; ``tests/xlstm_spread.py``, ``tests/test_torch_xlstm.py``).
+musicgen-medium takes frame embeddings: the prompt's frames one by one,
+then ``0.0 * frame_emb[:, :1]`` at every generated step, as the
+reference's ``serve`` feeds them (``src/repro/launch/serve.py:69``)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -25,7 +28,8 @@ from repro_torch.launch.serve import greedy_generate, serve
 from repro_torch.models import CallConfig, init_cache
 
 TOL = 1e-4
-ARCHS = ["smollm-135m", "qwen3-14b", "xlstm-1.3b", "llama-3.2-vision-11b"]
+ARCHS = ["smollm-135m", "qwen3-14b", "xlstm-1.3b", "llama-3.2-vision-11b",
+         "musicgen-medium"]
 LOGITS_TOL = {"xlstm-1.3b": 2e-3}
 
 
@@ -39,25 +43,31 @@ def test_serve_runs_on_cpu(arch):
     assert out["seconds"] > 0
 
 
-def _jax_greedy(params, cfg, call, tokens, gen, extra):
-    """The reference serve()'s loop, with its logits kept; ``extra`` (the
-    stub memory) goes to every step."""
-    b, prompt_len = tokens.shape
+def _jax_greedy(params, cfg, call, prompt, gen, extra):
+    """The reference serve()'s loop, with its logits kept; ``prompt`` is
+    tokens [B, P] or, for a config without an embedding table, frame_emb
+    [B, P, D], whose generated steps get ``0.0 * frame_emb[:, :1]``;
+    ``extra`` (the stub memory) goes to every step."""
+    b, prompt_len = prompt.shape[:2]
     cache = jax_init_cache(cfg, b, prompt_len + gen, jnp.float32)
     decode = jax.jit(lambda p, c, bt, pos: jax_decode(p, cfg, call, bt, c,
                                                       pos))
     extra = {k: jnp.asarray(v) for k, v in extra.items()}
+    prompt = jnp.asarray(prompt)
     for t in range(prompt_len):
-        logits, cache = decode(params, cache,
-                               {"tokens": jnp.asarray(tokens[:, t]),
-                                **extra}, jnp.int32(t))
+        step = ({"tokens": prompt[:, t]} if cfg.embed_inputs
+                else {"frame_emb": prompt[:, t:t + 1]})
+        logits, cache = decode(params, cache, {**step, **extra},
+                               jnp.int32(t))
     out_t, out_l = [], []
     for t in range(prompt_len, prompt_len + gen):
         tok = jnp.argmax(logits, axis=-1).astype(jnp.int32)
         out_t.append(np.asarray(tok))
         out_l.append(np.asarray(logits))
         if t < prompt_len + gen - 1:
-            logits, cache = decode(params, cache, {"tokens": tok, **extra},
+            step = ({"tokens": tok} if cfg.embed_inputs
+                    else {"frame_emb": 0.0 * prompt[:, :1]})
+            logits, cache = decode(params, cache, {**step, **extra},
                                    jnp.int32(t))
     return np.stack(out_t, axis=1), out_l
 
@@ -70,8 +80,12 @@ def test_greedy_tokens_match_reference(arch):
     jparams = jax_init_params(jcfg, jax.random.PRNGKey(3))
     params = convert.model_params_from_reference(
         jax.tree.map(np.asarray, jparams), cfg, device="cpu")
-    tokens = np.random.RandomState(3).randint(0, cfg.vocab,
-                                              (b, prompt_len))
+    rs = np.random.RandomState(3)
+    if cfg.embed_inputs:
+        prompt = rs.randint(0, cfg.vocab, (b, prompt_len))
+    else:
+        prompt = (0.02 * rs.standard_normal((b, prompt_len, cfg.d_model))
+                  ).astype(np.float32)
     jcall = JaxCall(compute_dtype=jnp.float32, attention_impl="dense",
                     remat=False)
     call = CallConfig(compute_dtype=torch.float32, attention_impl="dense",
@@ -81,13 +95,14 @@ def test_greedy_tokens_match_reference(arch):
         extra["vision_mem"] = (0.02 * np.random.RandomState(4).standard_normal(
             (b, cfg.cross_attn.n_mem_tokens, cfg.d_model))).astype(np.float32)
     tol = LOGITS_TOL.get(arch, TOL)
-    want, want_logits = _jax_greedy(jparams, jcfg, jcall, tokens, gen, extra)
+    want, want_logits = _jax_greedy(jparams, jcfg, jcall, prompt, gen, extra)
     cache = init_cache(cfg, b, prompt_len + gen, torch.float32,
                        device="cpu")
     with torch.no_grad():
         got, got_logits = greedy_generate(
             params, cfg, call,
-            {"tokens": torch.from_numpy(tokens),
+            {("tokens" if cfg.embed_inputs else "frame_emb"):
+             torch.from_numpy(prompt),
              **{k: torch.from_numpy(v) for k, v in extra.items()}},
             cache, prompt_len, gen)
     assert got.shape == (b, gen)
@@ -121,3 +136,41 @@ def test_serve_passes_the_memory_to_every_step(monkeypatch):
     assert seen[0] is not None and tuple(seen[0].shape) == (2, 7, 64)
     assert all(m is seen[0] for m in seen)
     assert abs(float(seen[0].std()) - 0.02) < 0.005
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_generated_frames_are_zeros_of_the_prompts_dtype(dtype, monkeypatch):
+    """musicgen-medium under greedy_generate: the prompt's frames go in one
+    by one, then every generated step gets 0.0 * frame_emb[:, :1], zeros
+    of the prompt's own dtype (bf16 stays bf16), which forward_decode
+    casts to the compute dtype as the reference's ``_embed`` does."""
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.models import init_params
+    dt = getattr(torch, dtype)
+    cfg = get_config("musicgen-medium").reduced()
+    params = init_params(cfg, 0, device="cpu", dtype=dt)
+    call = CallConfig(compute_dtype=dt, attention_impl="dense", remat=False)
+    prompt = (0.02 * torch.randn((2, 3, cfg.d_model),
+                                 generator=torch.Generator().manual_seed(0))
+              ).to(dt)
+    seen = []
+    decode = serve_mod.forward_decode
+
+    def spy(params, cfg, call, batch, cache, pos):
+        seen.append(batch["frame_emb"])
+        return decode(params, cfg, call, batch, cache, pos)
+
+    monkeypatch.setattr(serve_mod, "forward_decode", spy)
+    cache = init_cache(cfg, 2, 3 + 4, dt, device="cpu")
+    with torch.no_grad():
+        toks, logits = greedy_generate(params, cfg, call,
+                                       {"frame_emb": prompt}, cache, 3, 4)
+    assert len(seen) == 3 + 4 - 1
+    for t in range(3):
+        assert torch.equal(seen[t], prompt[:, t:t + 1])
+    for f in seen[3:]:
+        assert f.dtype == dt and tuple(f.shape) == (2, 1, cfg.d_model)
+        assert not f.any()
+    assert toks.shape == (2, 4) and all(lg.dtype == torch.float32
+                                        and torch.isfinite(lg).all()
+                                        for lg in logits)

@@ -154,7 +154,7 @@ def _jax_batches(jcfg, n, b=4, s=32, seed=3):
 
 
 @pytest.mark.parametrize("arch", ["smollm-135m", "dbrx-132b",
-                                  "llama-3.2-vision-11b"])
+                                  "llama-3.2-vision-11b", "musicgen-medium"])
 def test_make_train_step_matches_reference(arch):
     """5 steps of the reference's jitted train step and the port's, from
     the reference's params and batches (the reference trainer's CallConfig
@@ -273,6 +273,36 @@ def test_pipeline_follows_reference_distribution():
         mean, var = (p * logr).sum(), (p * logr ** 2).sum() \
             - (p * logr).sum() ** 2
         assert abs(np.mean(logr[base]) - mean) < 4 * np.sqrt(var / n)
+
+
+@pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
+def test_frame_embedding_inputs_match_reference(kind):
+    """musicgen-medium (no embedding table): the batch and the dry run's
+    input stand-ins carry frame_emb where a token model carries tokens,
+    with the reference's keys, shapes and dtypes; the pipeline's frames
+    are 0.02 N(0, 1) float32, as the reference draws them (the draws
+    themselves are the port's own, ROADMAP Queue C)."""
+    from repro.distributed.steps import input_specs as jax_input_specs
+    from repro_torch.distributed.steps import input_specs
+    arch = "musicgen-medium"
+    cfg, jcfg = get_config(arch).reduced(), jax_get_config(arch).reduced()
+    shape = ShapeConfig("t", kind, 64, 8)
+    want = jax_input_specs(jcfg, shape, jnp.float32)
+    got = input_specs(cfg, shape, torch.float32)
+    assert {k: (tuple(v.shape), str(v.dtype).replace("torch.", ""))
+            for k, v in got.items()} == \
+        {k: (tuple(v.shape), str(v.dtype)) for k, v in want.items()}
+    if kind != "train":
+        return
+    batch = global_batch(cfg, shape, DataConfig(seed=3), 0, device=CPU)
+    jb = jax_global_batch(jcfg, shape, JaxDataConfig(seed=3), 0)
+    assert {k: (tuple(v.shape), str(v.dtype).replace("torch.", ""))
+            for k, v in batch.items()} == \
+        {k: (tuple(v.shape), str(v.dtype)) for k, v in jb.items()}
+    for emb in (batch["frame_emb"].numpy(), np.asarray(jb["frame_emb"])):
+        assert abs(float(emb.std()) - 0.02) < 0.001
+        assert abs(float(emb.mean())) < 0.001
+    assert ((batch["labels"] >= 0) & (batch["labels"] < cfg.vocab)).all()
 
 
 # ---- checkpoints --------------------------------------------------------------

@@ -52,10 +52,12 @@ def single_thread():
     torch.set_num_threads(threads)
 
 
-def jax_draw_table(seed: int = SEED, ticks: int = T) -> np.ndarray:
-    """[T, n] the reference's per-tick Poisson draws for one lane."""
+def jax_draw_table(seed: int = SEED, ticks: int = T, lam=LAM,
+                   n: int = N) -> np.ndarray:
+    """[T, n] the reference's per-tick Poisson draws for one lane at
+    ``lam`` arrivals a tick and replica."""
     base = jax.random.PRNGKey(seed)
-    lam = jnp.broadcast_to(jnp.float32(LAM), (N,))
+    lam = jnp.broadcast_to(jnp.float32(lam), (n,))
     draw = lambda t: jax.random.poisson(  # noqa: E731
         jax.random.fold_in(base, t), lam).astype(jnp.float32)
     return np.asarray(jax.lax.map(draw, jnp.arange(ticks, dtype=jnp.int32)))
