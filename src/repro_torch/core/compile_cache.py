@@ -28,6 +28,9 @@ store below makes it once per process and program:
   built and libraries nvcc compiled. A kernel wrapper's own
   ``launch_count`` moves for the eager warm-up tick and once for the
   capture (a launch recorded into the graph), never for a replay.
+  A capture's seconds are its ``sweep.capture`` span and a load is a
+  ``sweep.load`` span (``core/spans.py``, the sweep engine's clock, which
+  keeps and resets its own counters).
 
 No persistent cache is ported: a CUDA graph holds device pointers of one
 process and cannot be saved to disk, so every process captures its
@@ -41,12 +44,12 @@ to the caller. The eager loop on the card is reachable only through
 from __future__ import annotations
 
 import collections
-import time
 from dataclasses import dataclass
 from typing import Callable, Dict, Optional
 
 import torch
 
+from repro_torch.core import spans
 from repro_torch.kernels import _build
 
 # programs kept; the oldest is dropped past this (its graph and buffers
@@ -247,7 +250,8 @@ def start(key: tuple, protocol: str,
     else:
         _STORE.move_to_end(key)
         _STATS["hits"] += 1
-    prog.load(carry, inputs, t)
+    with spans.span("sweep.load"):
+        prog.load(carry, inputs, t)
     _STATS["graph_runs"] += 1
     _STATS["eager_ticks"] += 1          # the run's warm-up tick
     return Replays(prog, inputs, t, replays)
@@ -274,7 +278,9 @@ def capture(tick: Callable[[Dict, Dict, torch.Tensor], Dict], carry: Dict,
     copy. A leaf that is another static leaf, or a view of one, is copied
     out first, so no copy-back reads a buffer already overwritten. The
     capture executes nothing: the buffers hold the run's state until the
-    first replay."""
+    first replay. Its seconds are the ``sweep.capture`` span: from the
+    device drained to the graph instantiated and the device drained
+    again."""
     static_carry = _clone_tree(carry)
     static_inputs = _clone_tree(inputs)
     static_t = t.clone()
@@ -283,14 +289,14 @@ def capture(tick: Callable[[Dict, Dict, torch.Tensor], Dict], carry: Dict,
     graph = torch.cuda.CUDAGraph(keep_graph=True)
     graph.enable_debug_mode()
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with torch.cuda.graph(graph):
-        new = tick(static_carry, static_inputs, static_t)
-        _copy_back(static_carry, new)
-    graph.instantiate()
-    torch.cuda.synchronize()
+    with spans.span("sweep.capture") as sp:
+        with torch.cuda.graph(graph):
+            new = tick(static_carry, static_inputs, static_t)
+            _copy_back(static_carry, new)
+        graph.instantiate()
+        torch.cuda.synchronize()
     return Program(graph, static_carry, static_inputs, static_t,
-                   time.perf_counter() - t0, protocol)
+                   sp.ns / 1e9, protocol)
 
 
 def _leaves(tree, path=()):

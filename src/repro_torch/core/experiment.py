@@ -44,8 +44,18 @@ replay one captured program. The port keeps a grid's points as the lanes
 of its one program (the reference pins its program to one lane).
 ``capture_counts``, ``program_signatures``, ``shard_signatures`` and
 ``compile_report`` account for the programs, as the reference's
-``trace_counts`` and friends; ``timing_stats`` splits the walls as the
-reference does.
+``trace_counts`` and friends.
+
+**Spans.** The engine times itself with ``core/spans.py`` alone: a
+dispatch is a ``sweep.dispatch`` span under a new grid id, its
+``collect()`` a ``sweep.collect`` span under the same id, each split into
+the spans that module lists (lowering, arrivals, tick 0, capture, load,
+enqueue, finish; wait, readback, rows). On a card an unreduced grid also
+records its boundary events (``spans.GridEvents``): ``collect()`` waits on
+the grid's end event in ``collect.wait`` and adds the device counters;
+``collect.readback`` counts the bytes it copies to the host.
+``timing_stats`` is the reference's split of the walls, summed from the
+lengths of those two spans.
 
 **The reduced path** (``mesh=``, the reference's sharded sweep engine):
 the flattened grid's lanes split over a grid of devices
@@ -65,7 +75,6 @@ from __future__ import annotations
 
 import functools
 import itertools
-import time
 from dataclasses import dataclass
 from typing import Dict, Iterator, List, Tuple
 
@@ -76,7 +85,7 @@ from repro_torch import device as _device
 from repro_torch import scenarios as sc
 from repro_torch import workloads as wlc
 from repro_torch.configs.smr import SMRConfig
-from repro_torch.core import compile_cache, harness, netsim
+from repro_torch.core import compile_cache, harness, netsim, spans
 from repro_torch.core import workload as wlmod
 from repro_torch.core.compile_cache import ProgramSignature
 from repro_torch.core.epaxos import run_epaxos_model
@@ -93,7 +102,8 @@ CANONICAL_MIN_WINDOWS = 32
 # block takes its turn
 REPLAY_CHUNK = 64
 
-_TIMING: Dict[str, Dict[str, float]] = {}
+# per protocol, ``timing_stats``' buckets
+_WALLS: Dict[str, Dict[str, float]] = {}
 _SIGNATURES: Dict[str, set] = {}
 _SHARD_SIGNATURES: Dict[str, set] = {}
 
@@ -142,21 +152,22 @@ def compile_report() -> Dict:
 
 def timing_stats() -> Dict[str, Dict[str, float]]:
     """Per-protocol wall-clock of the sweeps since the last reset, in the
-    reference's buckets: ``compile_s`` (the walls of dispatches that
-    captured a program), ``run_s`` (the walls of the other dispatches plus
-    every ``collect()``'s wait and readback), ``dispatches``, and
-    ``horizon`` (the resolved ring size of the latest sweep). On the CPU a
-    dispatch runs its grid, so its wall is run time."""
-    return {k: dict(v) for k, v in _TIMING.items()}
+    reference's buckets, summed from the spans' lengths (``core/spans.py``):
+    ``compile_s`` (the ``sweep.dispatch`` spans that captured a program),
+    ``run_s`` (the other ``sweep.dispatch`` spans plus every
+    ``sweep.collect`` span), ``dispatches``, and ``horizon`` (the resolved
+    ring size of the latest sweep). On the CPU a dispatch runs its grid,
+    so its wall is run time."""
+    return {k: dict(v) for k, v in _WALLS.items()}
 
 
-def _timing(protocol: str) -> Dict[str, float]:
-    return _TIMING.setdefault(protocol, {"compile_s": 0.0, "run_s": 0.0,
-                                         "dispatches": 0, "horizon": 0})
+def _walls(protocol: str) -> Dict[str, float]:
+    return _WALLS.setdefault(protocol, {"compile_s": 0.0, "run_s": 0.0,
+                                        "dispatches": 0, "horizon": 0})
 
 
 def reset_timing_stats() -> None:
-    _TIMING.clear()
+    _WALLS.clear()
 
 
 @dataclass(frozen=True)
@@ -275,6 +286,13 @@ def _to_numpy(tree):
     return tree.cpu().numpy()
 
 
+def _nbytes(tree) -> int:
+    if isinstance(tree, (dict, list)):
+        return sum(map(_nbytes, tree.values() if isinstance(tree, dict)
+                       else tree))
+    return tree.nbytes
+
+
 def _lane(tree, i: int):
     if isinstance(tree, dict):
         return {k: _lane(v, i) for k, v in tree.items()}
@@ -380,30 +398,44 @@ class PendingSweep:
     path's pad and builds the rows, once: a second ``collect()`` returns
     the same list. It holds each run's ``harness.PointResult``, and so
     the captured programs they replayed, until then. Analytic protocols
-    resolve at dispatch (``results``)."""
+    resolve at dispatch (``results``). ``grid`` is the dispatch's grid id
+    (``core/spans.py``), ``marks`` its ``spans.GridEvents`` (None off the
+    card and on the reduced path)."""
 
     def __init__(self, protocol: str, *, results: List[Dict] = None,
-                 pts=None, wl_names=None, points=None, n_real=None):
+                 pts=None, wl_names=None, points=None, n_real=None,
+                 grid=None, marks=None):
         self.protocol = protocol
         self._results = results
         self._pts = pts
         self._wl_names = wl_names
         self._points = points     # harness.PointResult, one per block
         self._n_real = n_real     # reduced path: real points before the pad
+        self._grid, self._marks = grid, marks
 
     def collect(self) -> List[Dict]:
         if self._results is not None:
             return self._results
-        t0 = time.perf_counter()
-        for p in self._points:
-            p.checked()
-        outs = [_to_numpy(p.out) for p in self._points]
-        out = outs[0] if len(outs) == 1 else _concat(outs)
-        if self._n_real is not None:
-            out = _take(out, slice(self._n_real))
-        _timing(self.protocol)["run_s"] += time.perf_counter() - t0
-        self._points = None
-        self._results = _rows(self.protocol, self._pts, self._wl_names, out)
+        with spans.span("sweep.collect", grid=self._grid) as sp:
+            with spans.span("collect.wait"):
+                if self._marks is not None:
+                    self._marks.wait()
+                for p in self._points:
+                    p.checked()
+            with spans.span("collect.readback"):
+                outs = [_to_numpy(p.out) for p in self._points]
+            spans.count("collect.readback_bytes", _nbytes(outs))
+            spans.count("collect.lanes", len(self._pts))
+            if self._marks is not None:
+                self._marks.account()
+            out = outs[0] if len(outs) == 1 else _concat(outs)
+            if self._n_real is not None:
+                out = _take(out, slice(self._n_real))
+            self._points = self._marks = None
+            with spans.span("collect.rows"):
+                self._results = _rows(self.protocol, self._pts,
+                                      self._wl_names, out)
+        _walls(self.protocol)["run_s"] += sp.ns / 1e9
         return self._results
 
 
@@ -417,41 +449,57 @@ def _dispatch_scan(protocol: str, cfg: SMRConfig, spec: SweepSpec,
                          "devices of the reduced path")
     if not reduced:
         devices = [_device.resolve(device)]
-    t0 = time.perf_counter()
+    grid = spans.new_grid(protocol=protocol)
+    marks = None
     captures = compile_cache.stats()["captures"]
-    # the reduced path lowers on the host; each block goes to its device
-    pts, cfg, mode, env_b, rate_b, seed_b = _lower(
-        cfg, spec, torch.device("cpu") if reduced else devices[0],
-        canonical)
-    harness.check_supported(protocol, cfg, mode)
-    wlt = _lower_workloads(cfg, spec, canonical)
-    sig = _signature_of(cfg, mode, env_b, wlt, rate_b,
-                        sampling=draws is None or epochs is not None)
-    _SIGNATURES.setdefault(protocol, set()).add(sig)
-    seed_b = np.asarray(seed_b)
-    if reduced:
-        _SHARD_SIGNATURES.setdefault(protocol, set()).add(
-            (sig, len(devices)))
-        starts = [functools.partial(
-            harness.PointRun, protocol, cfg, _take(env_b, blk),
-            rate_b[blk].tolist(), seed_b[blk].tolist(),
-            draws=_take(draws, blk), mode=mode, device=dev,
-            wlt=_take(wlt, blk), epochs=_take(epochs, blk), reduced=True)
-            for dev, blk in zip(devices, _blocks(len(pts), len(devices)))]
-        points = _interleave(starts, devices)
-    else:
-        run = harness.PointRun(protocol, cfg, env_b, rate_b.tolist(),
-                               seed_b.tolist(), draws=draws, mode=mode,
-                               device=devices[0], wlt=wlt, epochs=epochs)
-        run.advance()
-        points = [run.finish()]
-    stats = _timing(protocol)
+    with spans.span("sweep.dispatch", grid=grid) as sp:
+        if not reduced and devices[0].type == "cuda":
+            marks = spans.GridEvents(devices[0], grid)
+        with spans.span("sweep.lower"):
+            # the reduced path lowers on the host; each block goes to its
+            # device
+            pts, cfg, mode, env_b, rate_b, seed_b = _lower(
+                cfg, spec, torch.device("cpu") if reduced else devices[0],
+                canonical)
+            harness.check_supported(protocol, cfg, mode)
+            wlt = _lower_workloads(cfg, spec, canonical)
+            sig = _signature_of(cfg, mode, env_b, wlt, rate_b,
+                                sampling=draws is None or epochs is not None)
+        _SIGNATURES.setdefault(protocol, set()).add(sig)
+        seed_b = np.asarray(seed_b)
+        if reduced:
+            _SHARD_SIGNATURES.setdefault(protocol, set()).add(
+                (sig, len(devices)))
+            starts = [functools.partial(
+                harness.PointRun, protocol, cfg, _take(env_b, blk),
+                rate_b[blk].tolist(), seed_b[blk].tolist(),
+                draws=_take(draws, blk), mode=mode, device=dev,
+                wlt=_take(wlt, blk), epochs=_take(epochs, blk), reduced=True)
+                for dev, blk in zip(devices, _blocks(len(pts),
+                                                     len(devices)))]
+            points = _interleave(starts, devices)
+        else:
+            run = harness.PointRun(protocol, cfg, env_b, rate_b.tolist(),
+                                   seed_b.tolist(), draws=draws, mode=mode,
+                                   device=devices[0], wlt=wlt,
+                                   epochs=epochs)
+            if marks is not None and run.replays:
+                marks.replays = run.replays
+                marks.record("first_replay")
+            run.advance()
+            if marks is not None and run.replays:
+                marks.record("last_replay")
+            points = [run.finish()]
+            if marks is not None:
+                marks.record("end")
+    walls = _walls(protocol)
     captured = compile_cache.stats()["captures"] > captures
-    stats["compile_s" if captured else "run_s"] += time.perf_counter() - t0
-    stats["dispatches"] += 1
-    stats["horizon"] = int(cfg.delay_horizon_ticks)
+    walls["compile_s" if captured else "run_s"] += sp.ns / 1e9
+    walls["dispatches"] += 1
+    walls["horizon"] = int(cfg.delay_horizon_ticks)
     return PendingSweep(protocol, pts=pts, wl_names=wl_names, points=points,
-                        n_real=len(pts) if reduced else None)
+                        n_real=len(pts) if reduced else None, grid=grid,
+                        marks=marks)
 
 
 def dispatch_sweep(protocol: str, cfg: SMRConfig, spec: SweepSpec,

@@ -49,7 +49,7 @@ from repro_torch import device as _device
 from repro_torch.configs.smr import SMRConfig
 from repro_torch.core import channel as ch
 from repro_torch.core import compile_cache
-from repro_torch.core import mandator, netsim, paxos, sporades
+from repro_torch.core import mandator, netsim, paxos, spans, sporades
 from repro_torch.core import workload as wlmod
 from repro_torch.distributed import sketch as dsketch
 from repro_torch.obs import monitor as hmon
@@ -59,6 +59,8 @@ from repro_torch.workloads.compile import TRIVIAL_MODE, WorkloadMode
 PROTOCOLS = ("mandator-sporades", "mandator-paxos", "multipaxos",
              "mandator")
 SCAN_PROTOCOLS = PROTOCOLS          # the reference's name of the tuple
+# the protocols with an ordering layer, Sporades or Paxos (``tick.order``)
+ORDERING = ("mandator-sporades", "mandator-paxos", "multipaxos")
 
 # Per-batch / per-tick output arrays whose size scales with the grid's
 # record capacity: the reduced sweep path (experiment.py, ``mesh=``)
@@ -231,28 +233,37 @@ def _tick(carry: Dict, t: torch.Tensor, arr: wlmod.Arrivals, env: Dict,
           cfg: SMRConfig, protocol: str, grace: Optional[torch.Tensor]):
     """One tick of ``protocol`` at tick ``t`` (a 0-dim int32 tensor);
     returns (carry, per-tick outputs that are not read off the carry: the
-    closed loop's in-flight counts)."""
+    closed loop's in-flight counts). Each module runs in its span
+    (``core/spans.py``: ``tick.mandator``, ``tick.order``, ``tick.closed``,
+    ``tick.monitor``), which a capture records once and a replay never."""
     carry = dict(carry)
     out = {}
     if "m" in carry:
-        carry["m"] = mandator.tick(carry["m"], t, arr, env, cfg)
-        lcr = mandator.get_client_requests(carry["m"])
-    if protocol == "mandator-sporades":
-        carry["s"] = sporades.tick(carry["s"], t, env, cfg, lcr)
-    elif protocol == "mandator-paxos":
-        carry["p"] = paxos.tick(carry["p"], t, None, env, cfg, True, lcr=lcr)
-    elif protocol == "multipaxos":
-        carry["p"] = paxos.tick(carry["p"], t, arr, env, cfg, False)
+        with spans.span("tick.mandator"):
+            carry["m"] = mandator.tick(carry["m"], t, arr, env, cfg)
+            lcr = mandator.get_client_requests(carry["m"])
+    if protocol in ORDERING:
+        with spans.span("tick.order"):
+            if protocol == "mandator-sporades":
+                carry["s"] = sporades.tick(carry["s"], t, env, cfg, lcr)
+            elif protocol == "mandator-paxos":
+                carry["p"] = paxos.tick(carry["p"], t, None, env, cfg, True,
+                                        lcr=lcr)
+            else:
+                carry["p"] = paxos.tick(carry["p"], t, arr, env, cfg, False)
     if arr.mode.closed:
-        carry, out["inflight"] = _closed_feedback(protocol, carry)
+        with spans.span("tick.closed"):
+            carry, out["inflight"] = _closed_feedback(protocol, carry)
     if "mon" in carry:
-        carry["mon"] = hmon.update(
-            carry["mon"], t, cfg, env, _monitor_views(protocol, cfg, carry),
-            grace, wlt=arr.wlt, inflight=out.get("inflight"),
-            # multipaxos closed-loop completion is a pro-rata estimate
-            # (see _closed_feedback): the cap is checkable only where done
-            # is exact
-            check_cap=arr.mode.closed and protocol != "multipaxos")
+        with spans.span("tick.monitor"):
+            carry["mon"] = hmon.update(
+                carry["mon"], t, cfg, env,
+                _monitor_views(protocol, cfg, carry), grace, wlt=arr.wlt,
+                inflight=out.get("inflight"),
+                # multipaxos closed-loop completion is a pro-rata estimate
+                # (see _closed_feedback): the cap is checkable only where
+                # done is exact
+                check_cap=arr.mode.closed and protocol != "multipaxos")
     return carry, out
 
 
@@ -352,14 +363,16 @@ def _loop_tick(carry: Dict, t: torch.Tensor, arr: wlmod.Arrivals,
                grace: Optional[torch.Tensor], leaves: Dict,
                trace: Dict) -> Dict:
     """One iteration of the tick loop, as the graph captures it: the tick,
-    its trace columns written at ``t`` on the device, and ``t += 1`` in
-    place."""
+    its trace columns written at ``t`` on the device (span ``tick.trace``),
+    and ``t += 1`` in place."""
     carry, out = _tick(carry, t, arr, env, cfg, protocol, grace)
-    at = t.long().view(1)
-    for k, (_, _, leaf) in leaves.items():
-        trace[k].index_copy_(1, at, leaf(carry).to(trace[k].dtype)[:, None])
-    if arr.mode.closed:
-        trace["inflight"].index_copy_(1, at, out["inflight"][:, None])
+    with spans.span("tick.trace"):
+        at = t.long().view(1)
+        for k, (_, _, leaf) in leaves.items():
+            trace[k].index_copy_(1, at,
+                                 leaf(carry).to(trace[k].dtype)[:, None])
+        if arr.mode.closed:
+            trace["inflight"].index_copy_(1, at, out["inflight"][:, None])
     t.add_(1)
     return carry
 
@@ -452,14 +465,19 @@ def _start_scan(protocol: str, cfg: SMRConfig, n_ticks: int, env: Dict,
     """Set the tick loop up and start it. Returns (run, replays): where
     the loop runs eagerly it has run, and ``replays`` is None; on the card
     the warm-up tick has run and ``replays`` (``compile_cache.Replays``)
-    enqueues the rest."""
-    run = _setup(protocol, cfg, n_ticks, env, draws, batch, device, reduced)
+    enqueues the rest. Spans: the set-up and tick 0 are ``sweep.tick0``,
+    an eager loop's other ticks ``sweep.enqueue``."""
+    with spans.span("sweep.tick0"):
+        run = _setup(protocol, cfg, n_ticks, env, draws, batch, device,
+                     reduced)
+        if n_ticks:
+            _warm(run, protocol, cfg)                       # the warm-up
     if device.type != "cuda" or _EAGER_ON_CARD or n_ticks < 2:
-        for _ in range(n_ticks):
-            _warm(run, protocol, cfg)
+        with spans.span("sweep.enqueue"):
+            for _ in range(n_ticks - 1):
+                _warm(run, protocol, cfg)
         compile_cache.count_eager(n_ticks)
         return run, None
-    _warm(run, protocol, cfg)                               # the warm-up
     key = _program_key(protocol, cfg, run["arr"], reduced, run["carry"],
                        run["inputs"])
     return run, compile_cache.start(key, protocol,
@@ -761,11 +779,14 @@ class PointRun:
     for: the constructor sets the run up (``make_arrivals``) and starts
     its loop (``_start_scan``: the CPU runs it all; the card runs the
     warm-up tick, captures the program if it is new, and loads the run
-    into its buffers); ``advance(n)`` enqueues up to ``n`` of the card's
-    replays; ``finish()`` copies the results out and extracts the
-    metrics, all enqueued (``PointResult``). Nothing between the
-    constructor and ``finish`` reads a value of the card back, except a
-    first capture. Arguments as ``sim_point``'s."""
+    into its buffers); ``replays`` is the number of the card's replays
+    (0 where the loop has run); ``advance(n)`` enqueues up to ``n`` of
+    them; ``finish()`` copies the results out and extracts the metrics,
+    all enqueued (``PointResult``). Nothing between the constructor and
+    ``finish`` reads a value of the card back, except a first capture.
+    Spans (``core/spans.py``): ``sweep.arrivals``, ``sweep.tick0``,
+    ``sweep.capture``, ``sweep.load``, ``sweep.enqueue``,
+    ``sweep.finish``. Arguments as ``sim_point``'s."""
 
     def __init__(self, protocol: str, cfg: SMRConfig, env: Dict,
                  rate_per_tick: Sequence[float], seeds: Sequence[int],
@@ -779,24 +800,26 @@ class PointRun:
                              "netsim.resolve_horizon first")
         self.protocol, self.cfg, self.reduced = protocol, cfg, reduced
         with _device.on(dev):
-            env = {k: _device.to_device(v, dev) for k, v in env.items()}
-            self.arr = make_arrivals(cfg, mode, rate_per_tick, seeds, dev,
-                                     wlt, draws, epochs)
+            with spans.span("sweep.arrivals"):
+                env = {k: _device.to_device(v, dev) for k, v in env.items()}
+                self.arr = make_arrivals(cfg, mode, rate_per_tick, seeds,
+                                         dev, wlt, draws, epochs)
             self._run, self._replays = _start_scan(
                 protocol, cfg, netsim.sim_ticks(cfg), env, self.arr,
                 len(seeds), dev, reduced)
+        self.replays = 0 if self._replays is None else self._replays.left
 
     def advance(self, n: Optional[int] = None) -> bool:
         """Enqueue up to ``n`` more replays (all with None); True while
         some are left."""
         if self._replays is None:
             return False
-        with _device.on(self.device):
+        with _device.on(self.device), spans.span("sweep.enqueue"):
             return self._replays.step(n)
 
     def finish(self) -> PointResult:
         run, replays = self._run, self._replays
-        with _device.on(self.device):
+        with _device.on(self.device), spans.span("sweep.finish"):
             if replays is not None:
                 run["carry"] = replays.finish()
             res = _results(self.protocol, self.cfg, run["carry"],
