@@ -8,10 +8,10 @@ Run from the root of a checkout, with one card and no arguments:
 Phases, each printed as it ends; any failure exits non-zero:
 
   1. card   — nvidia-smi's name and power limit;
-  2. build  — nvcc builds the six kernels of csrc/ (channel_ring.cu,
+  2. build  — nvcc builds the seven kernels of csrc/ (channel_ring.cu,
               rmsnorm.cu, flash_attention.cu, ssm_scan.cu,
-              decode_attention.cu, with the header tf32x3.cuh, and
-              sketch_buckets.cu; sm_90a),
+              decode_attention.cu, with the header tf32x3.cuh,
+              sketch_buckets.cu and sporades_tick.cu; sm_90a),
               all started together; build time, ptxas registers and
               spills, and each decode split kernel's CTAs per SM and
               dynamic shared memory;
@@ -31,6 +31,16 @@ Phases, each printed as it ends; any failure exits non-zero:
               pack_entries alone (the preparation the launch absorbs) and
               of the plain path, beside the bytes-based bound at 3.35 TB/s,
               and the host time per call of the fused and the plain path;
+  3b. sporades tick — the Sporades tick as one kernel
+              (csrc/sporades_tick.cu) against its op chain
+              (core/sporades._tick_chain), bit for bit on every state leaf
+              and the ring after every tick: the 16-lane Fig-6 grid, 512
+              ticks, baseline at the paper's 300 ms view timeout,
+              leader-crash-recover at 60 ms with telemetry full, and
+              leader-crash-recover at 60 ms at n = 9; then at
+              the benchmark's 64 lanes the device time of one launch beside
+              its bytes-based bound, and of a whole Sporades tick by each
+              route;
   4. main   — the Fig-6 sweep at full size through the port's entry point:
               run_sweep("mandator-sporades", SMRConfig(), 4 rates x 4
               seeds) = 16 lanes, n=5, 10 000 ticks, D=256, as one captured
@@ -341,6 +351,7 @@ L2_BYTES = 50e6                    # H100 L2 cache (data sheet)
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "tf32": 495e12}
 B, D = 16, 256                     # the Fig-6 grid's lanes and ring slots
 COMMIT_KERNEL = "commit_kernel"    # in csrc/channel_ring.cu's kernel's name
+TICK_KERNEL = "sporades_tick_kernel"   # csrc/sporades_tick.cu's kernel
 FIG6_RATES = (50_000, 150_000, 300_000, 450_000)
 FIG6_SEEDS = (0, 1, 2, 3)
 
@@ -582,6 +593,186 @@ def phase_kernel(results: dict) -> None:
     results["max_abs_err"] = max_err
 
 
+# phase 3b: the Sporades tick as one kernel (csrc/sporades_tick.cu)
+# against its op chain (core/sporades._tick_chain);
+# tests/test_torch_sporades_tick_cuda.py runs the same pairs
+SPORADES_TICKS = 512                # 2 D at the canonical D = 256
+TICK_TRANSITIONS = ("accept", "lead_trig", "lead_commit", "timeout",
+                    "enter", "to_h2", "adopt", "to_ac", "exit",
+                    "exit_commit", "bfall")
+
+
+def sporades_lanes(scenario: str, sim_s: float, view_timeout_ms: float,
+                   rates=FIG6_RATES, seeds=FIG6_SEEDS, telemetry=False,
+                   n_replicas: int = 5, device: str = "cuda"):
+    """A mandator-sporades grid (rates x seeds, one scenario, n_replicas
+    replicas) set up on ``device`` at tick 0: (cfg, env, arrivals,
+    Mandator's state, Sporades', the tick t)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs.smr import SMRConfig
+    from repro_torch.core import experiment, harness, netsim
+    from repro_torch.core.experiment import SweepSpec
+    from repro_torch.scenarios import library
+    cfg = SMRConfig(n_replicas=n_replicas, sim_seconds=sim_s,
+                    view_timeout_ms=view_timeout_ms)
+    if telemetry:
+        cfg = dataclasses.replace(cfg, trace_level="full",
+                                  monitor_level="full")
+    spec = SweepSpec(rates=rates, seeds=seeds,
+                     scenarios=(library.get(scenario, sim_s, n_replicas),))
+    dev = torch.device(device)
+    _, rcfg, mode, env, rate_b, seed_b = experiment._lower(
+        cfg, spec, dev, canonical=True)
+    arr = harness.make_arrivals(
+        rcfg, mode, rate_b.tolist(), seed_b, dev,
+        experiment._lower_workloads(rcfg, spec, canonical=True))
+    run = harness._setup("mandator-sporades", rcfg, netsim.sim_ticks(rcfg),
+                         env, arr, len(seed_b), dev)
+    return (rcfg, env, arr, run["carry"]["m"], run["carry"]["s"],
+            run["t"])
+
+
+def _leaf_names(tree: dict, prefix: str = "") -> list:
+    return [n for k in sorted(tree) for n in (
+        _leaf_names(tree[k], f"{prefix}{k}.") if isinstance(tree[k], dict)
+        else [f"{prefix}{k}"])]
+
+
+def sporades_tick_pair(scenario: str, view_timeout_ms: float,
+                       telemetry: bool = False,
+                       ticks: int = SPORADES_TICKS,
+                       n_replicas: int = 5) -> tuple:
+    """The kernel route and the op chain side by side for ``ticks`` ticks
+    of the 16-lane Fig-6 grid (4 rates x 4 seeds) of ``n_replicas``
+    replicas under ``scenario``, one Mandator feeding both its lcr.
+    Returns (the first mismatch as a message, or None; the op chain's
+    transitions fired, summed over lanes and ticks; the leaves
+    compared)."""
+    from repro_torch.core import mandator, sporades
+    from repro_torch.kernels.sporades_tick import kernel
+    cfg, env, arr, m, chain, t = sporades_lanes(
+        scenario, ticks / 1000, view_timeout_ms, telemetry=telemetry,
+        n_replicas=n_replicas)
+    fused = _clone(chain)
+    counts = dict.fromkeys(TICK_TRANSITIONS, 0)
+    launches = kernel.launch_count
+    for tick in range(ticks):
+        m = mandator.tick(m, t, arr, env, cfg)
+        chain, fired = sporades._tick_chain(chain, t, env, cfg, m["lcr"])
+        fused = sporades._tick_kernel(fused, t, env, cfg, m["lcr"])
+        for k in TICK_TRANSITIONS:
+            counts[k] += int(fired[k].sum())
+        try:
+            _same_tree(chain, fused, f"{scenario} ({view_timeout_ms} ms, "
+                                     f"n={n_replicas}), tick {tick}")
+        except AssertionError as e:
+            return str(e), counts, []
+        t.add_(1)
+    if kernel.launch_count - launches != ticks:
+        raise AssertionError(f"{kernel.launch_count - launches} kernel "
+                             f"launches for {ticks} ticks")
+    return None, counts, _leaf_names(fused)
+
+
+def tick_bound_bytes(st, env, lcr, out) -> int:
+    """Bytes one launch of the Sporades tick kernel must move: the ring's
+    delivered slot, each state leaf read and written, the coin of each
+    replica's view, Mandator's lcr, each lane's row of the scenario's
+    tables at the tick's window and its window index, and the outputs
+    written; the tick itself, one int32 read."""
+    import torch
+    from repro_torch.kernels.sporades_tick import kernel
+    buf = st["ring"]["buf"]
+    B, _, n, _, K = buf.shape
+    state = sum(st[name].numel() * st[name].element_size()
+                for name, _, _ in kernel.STATE)
+    rows = sum(env[k][0, 0].numel() * env[k].element_size() * B
+               for k in ("alive_tab", "drop_tab", "delay_tab"))
+    outs = sum(x.numel() * x.element_size() for k, x in out.items()
+               if isinstance(x, torch.Tensor))
+    return (B * n * n * K * 4 + 2 * state + B * n * 8
+            + lcr.numel() * 4 + env["delays"].numel() * 4 + rows + B * 4
+            + outs + 4)
+
+
+def phase_sporades_tick(results: dict) -> None:
+    """(a) the kernel route == the op chain bit for bit after every tick
+    (every state leaf and the ring) on the Fig-6 grid's baseline at the
+    paper's 300 ms view timeout, under leader-crash-recover at 60 ms with
+    telemetry full, and under leader-crash-recover at 60 ms at n = 9
+    (Fig 9's widest); (b) at the benchmark's 64 lanes, the device time
+    of one kernel launch beside its bytes-based bound, and of a whole
+    Sporades tick by each route (the kernel + the ring's commit; the op
+    chain, host waits included)."""
+    import torch
+    from repro_torch.core import mandator, sporades
+    from repro_torch.kernels.sporades_tick import kernel
+    fired = dict.fromkeys(TICK_TRANSITIONS, 0)
+    cases = []
+    for scen, vt, tele, n in (("baseline", 300.0, False, 5),
+                              ("leader-crash-recover", 60.0, True, 5),
+                              ("leader-crash-recover", 60.0, False, 9)):
+        t0 = time.perf_counter()
+        mismatch, counts, leaves = sporades_tick_pair(scen, vt, tele,
+                                                      n_replicas=n)
+        if mismatch is not None:
+            raise AssertionError(f"sporades tick kernel != op chain: "
+                                 f"{mismatch}")
+        for k, v in counts.items():
+            fired[k] += v
+        cases.append(f"{scen} {vt} ms n={n}" + (" telemetry" if tele
+                                                else ""))
+        log("sporades tick", f"{scen} at {vt} ms, n={n}, telemetry "
+                             f"{'full' if tele else 'off'}: 16 lanes x "
+                             f"{SPORADES_TICKS} ticks, kernel == op chain "
+                             f"bitwise after every tick on {len(leaves)} "
+                             f"leaves ({time.perf_counter() - t0!r} s); "
+                             f"transitions {counts}")
+    seeds = tuple(range(16))
+    cfg, env, arr, m, st, t = sporades_lanes("baseline", 1.0, 300.0,
+                                             seeds=seeds)
+    for _ in range(300):                # past the first views' traffic
+        m = mandator.tick(m, t, arr, env, cfg)
+        st = sporades.tick(st, t, env, cfg, m["lcr"])
+        t.add_(1)
+    lcr = m["lcr"]
+    spec = sporades.ring_spec(cfg.n_replicas)
+    layout = [(spec.offset(c), spec.flag(c)) for c in kernel.CHANNELS]
+    to_ticks = cfg.view_timeout_ms / cfg.tick_ms
+    chain_st = _clone(st)
+    out = kernel.sporades_tick(_clone(st), t, env, lcr, to_ticks, layout)
+
+    def launch():
+        kernel.sporades_tick(st, t, env, lcr, to_ticks, layout)
+
+    def fused_tick():
+        sporades._tick_kernel(st, t, env, cfg, lcr)
+
+    def chain_tick():
+        sporades._tick_chain(chain_st, t, env, cfg, lcr)
+
+    ms, tick_ms, chain_ms = (device_ms(f) for f in (launch, fused_tick,
+                                                   chain_tick))
+    nbytes = tick_bound_bytes(st, env, lcr, out)
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    host = host_ms(launch)
+    B = st["v_cur"].shape[0]
+    log("sporades tick", f"B={B} n={cfg.n_replicas} "
+                         f"D={cfg.delay_horizon_ticks} K={spec.k}: kernel "
+                         f"{ms!r} ms a launch (bound {bound_ms!r} ms: "
+                         f"{nbytes} bytes at 3.35 TB/s; {bound_ms / ms:.2%}"
+                         f" of it); a Sporades tick by the kernel + ring "
+                         f"commit {tick_ms!r} ms, by the op chain "
+                         f"{chain_ms!r} ms (host waits included); host per "
+                         f"launch {host!r} ms")
+    results["sporades_tick"] = {"ms": ms, "bound_ms": bound_ms,
+                                "bytes": nbytes, "tick_ms": tick_ms,
+                                "chain_ms": chain_ms, "host_ms": host,
+                                "lanes": B, "transitions": fired,
+                                "cases": cases}
+
+
 def phase_main(results: dict) -> None:
     import torch
     from repro_torch.configs.smr import SMRConfig
@@ -626,6 +817,8 @@ def phase_main(results: dict) -> None:
                                  f"{r['throughput']}")
     results["launches"] = launches
     results["graph_launches"] = counts["channel_ring_commit_graph"]
+    results["tick_launches"] = counts["sporades_tick"]
+    results["tick_graph_launches"] = counts["sporades_tick_graph"]
     results["commits"] = commits
     results["main_programs"] = counts["_programs"]
     results["wall_s"] = wall
@@ -1048,21 +1241,32 @@ def _check_launches(protocol, counts, ticks, what) -> int:
     """One run of ``ticks`` ticks went through its tick graph: an eager
     warm-up tick, at most one capture, ``ticks - 1`` replays; the commit
     wrapper launched for the warm-up and the capture alone, and the
-    replays launched the commit kernel once a ring a tick. Returns the
-    commits run (wrapper's eager ones and the replays')."""
+    replays launched the commit kernel once a ring a tick. The Sporades
+    tick kernel likewise, once a tick for mandator-sporades, never for
+    the others. Returns the commits run (wrapper's eager ones and the
+    replays')."""
     rings, prog = RINGS[protocol], counts["_programs"]
     wrapper = counts["channel_ring_commit"]
     graph = counts["channel_ring_commit_graph"]
+    tick_runs = int(protocol == "mandator-sporades")
+    tick_wrapper = counts["sporades_tick"]
+    tick_graph = counts["sporades_tick_graph"]
     ok = (prog["graph_runs"] == 1 and prog["eager_ticks"] == 1
           and prog["replays"] == ticks - 1 and prog["captures"] <= 1
           and wrapper == rings * (1 + prog["captures"])
-          and graph == rings * (ticks - 1))
+          and graph == rings * (ticks - 1)
+          and tick_wrapper == tick_runs * (1 + prog["captures"])
+          and tick_graph == tick_runs * (ticks - 1))
     if not ok:
         raise AssertionError(
             f"{what}: {protocol} expected one graph run of {ticks} ticks "
             f"({rings} commit a tick: {rings} or {2 * rings} through the "
-            f"wrapper, {rings * (ticks - 1)} by the replays), got wrapper "
-            f"{wrapper}, replays' {graph}, programs {prog}")
+            f"wrapper, {rings * (ticks - 1)} by the replays; "
+            f"{tick_runs} Sporades tick kernel a tick: {tick_runs} or "
+            f"{2 * tick_runs} through its wrapper, "
+            f"{tick_runs * (ticks - 1)} by the replays), got wrapper "
+            f"{wrapper}, replays' {graph}, tick kernel {tick_wrapper} and "
+            f"replays' {tick_graph}, programs {prog}")
     return wrapper - rings * prog["captures"] + graph
 
 
@@ -1071,7 +1275,9 @@ def _graph_line(counts) -> str:
     return (f"channel_ring_commit launches: {counts['channel_ring_commit']} "
             f"through the wrapper (warm-up tick and capture), "
             f"{counts['channel_ring_commit_graph']} by {p['replays']} "
-            f"replays; {p['captures']} capture(s) in {p['capture_s']!r} s")
+            f"replays; sporades_tick {counts['sporades_tick']} and "
+            f"{counts['sporades_tick_graph']}; {p['captures']} capture(s) "
+            f"in {p['capture_s']!r} s")
 
 
 def phase_protocols(results: dict) -> None:
@@ -2341,9 +2547,11 @@ def _kernel_modules() -> dict:
     from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.kernels.rmsnorm import kernel as rk
     from repro_torch.kernels.sketch_buckets import kernel as bk
+    from repro_torch.kernels.sporades_tick import kernel as tk
     from repro_torch.kernels.ssm_scan import kernel as sk
     return {"channel_ring_commit": ck, "rmsnorm": rk, "flash_attention": fk,
-            "ssm_scan": sk, "decode_attention": dk, "sketch_buckets": bk}
+            "ssm_scan": sk, "decode_attention": dk, "sketch_buckets": bk,
+            "sporades_tick": tk}
 
 
 _PROGRAM_TOTALS: dict = {}
@@ -2365,8 +2573,9 @@ def _reset_counts():
 
 
 def _counts() -> dict:
-    """Each wrapper's launches since the last reset, plus the commit
-    kernel's launches by the tick graphs' replays (``_graph``) and the
+    """Each wrapper's launches since the last reset, plus the commit and
+    Sporades tick kernels' launches by the tick graphs' replays
+    (``_graph``) and the
     programs' accounting (``_programs``): on the card a wrapper launches
     its kernel for a run's eager warm-up tick and once into the graph it
     captures; the replays launch the graph's kernel nodes."""
@@ -2374,6 +2583,8 @@ def _counts() -> dict:
     out = {name: k.launch_count for name, k in _kernel_modules().items()}
     out["channel_ring_commit_graph"] = compile_cache.graph_kernel_launches(
         COMMIT_KERNEL)
+    out["sporades_tick_graph"] = compile_cache.graph_kernel_launches(
+        TICK_KERNEL)
     out["_programs"] = compile_cache.stats()
     return out
 
@@ -4680,6 +4891,7 @@ def kernel_entries(results: dict) -> list:
     red = results["reduced"]
     sk = red["mandator-sporades"]["kernel"]
     mg = results["examples"]["musicgen"]
+    tick = results["sporades_tick"]
     return [{
         "name": "channel_ring_commit",
         "route": "cuda",
@@ -4831,6 +5043,28 @@ def kernel_entries(results: dict) -> list:
         "max_abs_err_card_plain": sk["max_abs_err_card_plain"],
         "multipaxos": red["multipaxos"]["kernel"],
         "reduced_sweeps": red,
+    }, {
+        "name": "sporades_tick",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/sporades_tick.cu",
+        # no Pallas kernel stands behind it: the reference's tick is jnp
+        "replaces": "src/repro/core/sporades.py:98",
+        "replaces_kind": "jnp (no pallas_call)",
+        # on the main path the wrapper launches for the warm-up tick and
+        # into the graph it captures; the graph's replays launch the rest
+        "launches": results["tick_launches"],
+        "graph_launches": results["tick_graph_launches"],
+        "max_abs_err": 0.0,           # phase 3b: bitwise on every leaf
+        "bitwise_cases": tick["cases"],
+        "ms": tick["ms"],
+        "plain_ms": tick["chain_ms"],
+        "bound_ms": tick["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+        "tick_ms": tick["tick_ms"],
+        "host_ms": tick["host_ms"],
+        "lanes": tick["lanes"],
+        "transitions": tick["transitions"],
     }]
 
 
@@ -4909,6 +5143,7 @@ def main() -> int:
 
 def run_phases(results: dict, timed) -> None:
     timed("kernel", phase_kernel, results)
+    timed("sporades tick", phase_sporades_tick, results)
     timed("main", phase_main, results)
     timed("profile", phase_profile, results)
     timed("whole path", phase_whole_path)

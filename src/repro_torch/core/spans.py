@@ -42,8 +42,10 @@ every tick of an eager loop, never in a replay: ``tick.mandator``,
 
 **Counters** (``count``, kept in total and per grid):
 ``collect.readback_bytes`` (bytes copied to the host) and
-``collect.lanes`` (lanes collected), and on the card the device counters
-that ``GridEvents`` adds.
+``collect.lanes`` (lanes collected), ``order.kernel_calls`` and
+``order.chain_calls`` (``sporades.tick`` calls that took the CUDA kernel
+or the op chain; Python calls only, as the tick scopes), and on the card
+the device counters that ``GridEvents`` adds.
 
 **Device events** (``GridEvents``; unreduced grids on a card). A grid
 with replays records CUDA events with timing on its stream:

@@ -20,18 +20,25 @@ does no host sync. With tracing or
 monitoring on, the state also carries the layer's flight recorder
 (``tr``) and the monitor's IO gauges (``mon_io``), written at the end of
 the tick.
+
+Two routes run the tick, picked by where the state lives (the rule of
+``kernels/_dispatch.py``): on the card one CUDA kernel
+(``kernels/sporades_tick``, ``_tick_kernel``), which updates the state in
+place, and on the CPU the op chain (``_tick_chain``), which returns new
+tensors. Both give the same state bit for bit.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 
 from repro_torch import device as _device
 from repro_torch.configs.smr import SMRConfig
 from repro_torch.core import channel as ch
-from repro_torch.core import netsim
+from repro_torch.core import netsim, spans
 from repro_torch.core.coin import coin_table
+from repro_torch.kernels.sporades_tick import kernel as tick_kernel
 from repro_torch.obs import monitor as hmon
 from repro_torch.obs import trace as obs
 
@@ -134,7 +141,82 @@ def _at(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 def tick(st: Dict, t: torch.Tensor, env: Dict, cfg: SMRConfig,
          lcr: torch.Tensor) -> Dict:
     """One simulator tick of every lane. lcr: Mandator getClientRequests()
-    per replica [B, n, n] (row i = replica i's vector clock)."""
+    per replica [B, n, n] (row i = replica i's vector clock).
+
+    A state on a CUDA device takes the kernel (``_tick_kernel``), one on
+    the CPU the op chain (``_tick_chain``). The kernel updates every
+    Sporades leaf of ``st`` in place (the ring too, as both routes do), so
+    the dict returned holds the same tensors, and a captured tick graph
+    (``compile_cache._copy_back``) copies nothing back for them; the op
+    chain returns new tensors. Each call adds one to the counter
+    ``order.kernel_calls`` or ``order.chain_calls`` (``core/spans.py``):
+    Python calls only (a warm-up tick, a capture, an eager loop), never a
+    replay."""
+    if st["v_cur"].device.type == "cuda":
+        spans.count("order.kernel_calls", 1)
+        return _tick_kernel(st, t, env, cfg, lcr)
+    spans.count("order.chain_calls", 1)
+    return _tick_chain(st, t, env, cfg, lcr)[0]
+
+
+def _tick_kernel(st: Dict, t: torch.Tensor, env: Dict, cfg: SMRConfig,
+                 lcr: torch.Tensor) -> Dict:
+    """The tick as one launch of ``kernels/sporades_tick`` (state in
+    place, sends into its scratch buffers), then the ring's commit of
+    those sends. With telemetry on, the tick-entry values the flight
+    recorder compares with are copied before the launch, and the cut
+    links come from the kernel's ``cut`` output."""
+    n = cfg.n_replicas
+    t = _device.tick_index(t, env["delays"].device)
+    spec = ring_spec(n)
+    telemetry = st.get("tr") is not None or "mon_io" in st
+    if telemetry:
+        entry = tuple(st[k].clone() for k in ("v_cur", "is_async",
+                                              "commit_key"))
+    out = tick_kernel.sporades_tick(
+        st, t, env, lcr, cfg.view_timeout_ms / cfg.tick_ms,
+        [(spec.offset(c), spec.flag(c)) for c in tick_kernel.CHANNELS])
+    sends = [ch.Send(name, pay, out["delay"], mask)
+             for name, pay, mask in out["sends"]]
+    st = dict(st)
+    st["ring"] = ch.ring_commit(spec, st["ring"], t, sends, drop=out["drop"],
+                                backend=cfg.channel_backend)
+    if telemetry:
+        _telemetry(st, netsim.alive(env, t), t, n, out["cut"].clone(), entry,
+                   (st["v_cur"], st["r_cur"], st["is_async"],
+                    st["commit_key"], st["cvc"].float()))
+    return st
+
+
+def _telemetry(st: Dict, alive: torch.Tensor, t: torch.Tensor, n: int,
+               cut: torch.Tensor, entry: tuple, new: tuple) -> None:
+    """Write the flight recorder (``tr``) and the monitor's IO gauges
+    (``mon_io``) of the tick into ``st``, where present. ``cut`` [B, n]:
+    each sender's sends lost to cut links; ``entry``: (v_cur, is_async,
+    commit_key) at the tick's entry; ``new``: (v_cur, r_cur, is_async,
+    commit_key, cvc as float32) at its end."""
+    v0, a0, c0 = entry
+    v_cur, r_cur, is_async, commit_key, cvc = new
+    tr = st.get("tr")
+    if tr is not None:
+        vchg = v_cur != v0
+        st["tr"] = obs.record_env(
+            obs.DEFAULT_SPEC, tr, alive, t, a=v_cur, b=r_cur,
+            dropped_links=cut, events=(
+                ("view_change", vchg, v_cur, r_cur),
+                ("leader_change", vchg, _leader_of(v_cur, n), v_cur),
+                # sync<->async transitions: a=1 entering the async path
+                ("mode_switch", is_async != a0, is_async, v_cur),
+                ("commit", commit_key > c0, commit_key, cvc.sum(dim=2))))
+    if "mon_io" in st:
+        st["mon_io"] = {"dropped": cut.int()}
+
+
+def _tick_chain(st: Dict, t: torch.Tensor, env: Dict, cfg: SMRConfig,
+                lcr: torch.Tensor) -> Tuple[Dict, Dict]:
+    """The tick as a chain of PyTorch ops (the plain version of
+    ``kernels/sporades_tick``). Returns (the new state, the transitions
+    that fired: {name: [B, n] bool})."""
     n = cfg.n_replicas
     f = (n - 1) // 2
     q = n - f
@@ -376,26 +458,13 @@ def tick(st: Dict, t: torch.Tensor, env: Dict, cfg: SMRConfig,
     # ---- flight recorder + monitor IO (absent => not run) ---------------
     # st[...] still holds the tick-entry values here (locals were rebound,
     # the dict is only updated below), so the masks are true transitions.
-    tr = st.get("tr")
-    if tr is not None or "mon_io" in st:
+    if st.get("tr") is not None or "mon_io" in st:
         sent_any = sends[0].mask
         for snd in sends[1:]:
             sent_any = sent_any | snd.mask
-        cut = (sent_any & drop).sum(dim=2)
-    if tr is not None:
-        vchg = v_cur != st["v_cur"]
-        st["tr"] = obs.record_env(
-            obs.DEFAULT_SPEC, tr, alive, t, a=v_cur, b=r_cur,
-            dropped_links=cut, events=(
-                ("view_change", vchg, v_cur, r_cur),
-                ("leader_change", vchg, _leader_of(v_cur, n), v_cur),
-                # sync<->async transitions: a=1 entering the async path
-                ("mode_switch", is_async != st["is_async"], is_async,
-                 v_cur),
-                ("commit", commit_key > st["commit_key"], commit_key,
-                 cvc.sum(dim=2))))
-    if "mon_io" in st:
-        st["mon_io"] = {"dropped": cut.int()}
+        _telemetry(st, alive, t, n, (sent_any & drop).sum(dim=2),
+                   (st["v_cur"], st["is_async"], st["commit_key"]),
+                   (v_cur, r_cur, is_async, commit_key, cvc))
 
     st.update(
         v_cur=v_cur, r_cur=r_cur, is_async=is_async, bh_key=bh_key,
@@ -406,4 +475,8 @@ def tick(st: Dict, t: torch.Tensor, env: Dict, cfg: SMRConfig,
         my_avc=my_avc.to(I32), exited_view=exited_view,
         ac_tick=ac_tick, ac_v_seen=ac_v_seen, vote_st=vote_st, to_st=to_st,
         pa_st=pa_st, va_st=va_st, ac_st=ac_st, ring=ring)
-    return st
+    fired = {"accept": accept, "lead_trig": lead_trig,
+             "lead_commit": lead_commit, "timeout": fire, "enter": enter,
+             "to_h2": to_h2, "adopt": adopt, "to_ac": to_ac, "exit": exit_,
+             "exit_commit": do_commit, "bfall": bfall}
+    return st, fired
