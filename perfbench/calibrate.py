@@ -14,7 +14,8 @@ the same lanes too: the reference with its float32 state rounded to
 bfloat16 after every tick, compared with the float32 reference (the upper
 readings). The reference jobs run in a pool of worker processes
 (``--workers``) while the card runs the next grids. One JSON line a seed,
-then a summary line.
+then a summary line; both give the readings per scenario of the grid too,
+with the port's ``async_frac`` and ``views`` under Sporades.
 """
 from __future__ import annotations
 
@@ -48,6 +49,28 @@ def reading(pairs) -> dict:
     return out
 
 
+def by_scenario(g, lanes, pairs) -> dict:
+    """``reading`` per scenario over the (row, reference row) pairs of
+    ``lanes`` of grid ``g``, with the rows' ``async_frac`` and ``views``
+    where they have them."""
+    out: dict = {}
+    for lane, (row, ref) in zip(lanes, pairs):
+        name = str(g.scenarios[g.points[lane][2]])
+        one = out.setdefault(name, {"pairs": [], "async_frac": [],
+                                    "views": []})
+        one["pairs"].append((row, ref))
+        for k in ("async_frac", "views"):
+            if k in row:
+                one[k].append(row[k])
+    return {name: dict(reading(v.pop("pairs")), **v)
+            for name, v in out.items()}
+
+
+def _worst(readings, pick) -> dict:
+    return {k: pick(r[k] for r in readings)
+            for k in ("exact_mismatches", "max_ulps")}
+
+
 def _job(job: dict):
     return pb_check.reference_rows(**job)
 
@@ -68,13 +91,14 @@ def main(argv=None) -> int:
     traffic, protocol = cell.traffic, cell.config["protocol"]
     settings = pb_inputs.smr_settings(cell.config, traffic)
     seeds = [args.first_seed + i for i in range(args.seeds)]
-    rows, picks, futs = [], [], {}
+    rows, picks, grids, futs = [], [], [], {}
     t0 = time.perf_counter()
     ctx = multiprocessing.get_context("spawn")
     with ProcessPoolExecutor(max_workers=args.workers,
                              mp_context=ctx) as pool:
         for i, seed in enumerate(seeds):
             g = pb_inputs.make_grid(settings, traffic, seed, 1)
+            grids.append(g)
             rows.append(port.dispatch(protocol, settings, g).collect())
             lanes = pb_check.sample_lanes(seed, [g])[1]
             picks.append(lanes)
@@ -87,24 +111,38 @@ def main(argv=None) -> int:
         port_s = time.perf_counter() - t0
         got = {k: f.result() for k, f in futs.items()}
     ref_s = time.perf_counter() - t0
-    lower, upper = [], []
+    lower, upper, scen_lower, scen_upper = [], [], {}, {}
     for i, seed in enumerate(seeds):
         ref = got[(i, "float32")]
-        program = reading([(rows[i][lane], r)
-                           for lane, r in zip(picks[i], ref)])
-        line = {"seed": seed, "lanes": picks[i], "program": program}
+        pairs = [(rows[i][lane], r) for lane, r in zip(picks[i], ref)]
+        program = reading(pairs)
+        line = {"seed": seed, "lanes": picks[i], "program": program,
+                "program_by_scenario": by_scenario(grids[i], picks[i],
+                                                   pairs)}
         lower.append(program)
+        for name, r in line["program_by_scenario"].items():
+            scen_lower.setdefault(name, []).append(r)
         if (i, "bfloat16") in got:
-            control = reading(list(zip(got[(i, "bfloat16")], ref)))
+            cpairs = list(zip(got[(i, "bfloat16")], ref))
+            control = reading(cpairs)
             line["control"] = control
+            line["control_by_scenario"] = by_scenario(grids[i], picks[i],
+                                                      cpairs)
             upper.append(control)
-        print(json.dumps(line), flush=True)
+            for name, r in line["control_by_scenario"].items():
+                scen_upper.setdefault(name, []).append(r)
+        print(json.dumps(line, default=float), flush=True)
     print(json.dumps({"workload": cell.name,
-                      "lower": {k: max(r[k] for r in lower)
-                                for k in ("exact_mismatches", "max_ulps")},
-                      "upper": {k: min(r[k] for r in upper)
-                                for k in ("exact_mismatches", "max_ulps")}
-                      if upper else None,
+                      "lower": _worst(lower, max),
+                      "upper": _worst(upper, min) if upper else None,
+                      "lower_by_scenario": {
+                          k: dict(_worst(v, max),
+                                  async_frac=[x for r in v
+                                              for x in r["async_frac"]],
+                                  views=[x for r in v for x in r["views"]])
+                          for k, v in scen_lower.items()},
+                      "upper_by_scenario": {k: _worst(v, min)
+                                            for k, v in scen_upper.items()},
                       "seeds": len(seeds), "control_seeds": len(upper),
                       "port_s": port_s, "ref_s": ref_s,
                       "workers": args.workers}), flush=True)

@@ -3,7 +3,8 @@
 Once the window has closed, a sample of the lanes of one of its grids,
 drawn from the run's seed, is simulated again by the plain reference
 (``plainsim``: the paper's protocols written out in NumPy, sharing no code
-with the port) from the same draw table, as one batch on the host's CPU.
+with the port) from the same draw table, each lane under its scenario's
+tables (``plainscen``), as one batch on the host's CPU.
 The sample takes a lane of every rate, scenario and workload of the grid
 (the grid's highest rate first) and random lanes besides, ``CHECK_LANES``
 in all at the least. Every value of each port row is held to the
@@ -25,6 +26,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 import pb_inputs
+import plainscen
 import plainsim
 
 # the fewest lanes a run checks; the largest float distance it admits, in
@@ -129,15 +131,20 @@ def sample_lanes(seed: int, grids: Sequence, count: int = CHECK_LANES
 def reference_rows(protocol: str, config: Dict, traffic: Dict, grid,
                    lanes: Sequence[int], precision: str = "float32"
                    ) -> List[Dict]:
-    """The reference's rows of ``lanes`` of ``grid``, in that order."""
-    dep = plainsim.deployment(config, traffic.get("smr"))
-    labels = []
+    """The reference's rows of ``lanes`` of ``grid``, in that order, each
+    lane under its scenario's tables (``plainscen``); the delay horizon is
+    sized over every scenario of the grid, as the port sizes its ring."""
+    settings = pb_inputs.smr_settings(config, traffic)
+    tabs = [plainscen.lower(settings, x) for x in grid.scenarios]
+    dep = plainsim.deployment(config, traffic.get("smr"), tabs)
+    labels, lane_tabs = [], []
     for i in lanes:
-        rate, seed, _, wi = grid.points[i]
+        rate, seed, fi, wi = grid.points[i]
         labels.append({"protocol": protocol, "rate": rate, "seed": seed,
                        "workload": grid.workloads[wi]})
+        lane_tabs.append(tabs[fi])
     return plainsim.lane_rows(protocol, dep, pb_inputs.take_lanes(
-        grid, lanes), labels, precision)
+        grid, lanes), plainscen.stack(lane_tabs), labels, precision)
 
 
 def compare(port_rows: Sequence[List[Dict]], grids: Sequence, gi: int,

@@ -8,10 +8,14 @@ table ``[B, T, n]`` float32, lane ``b`` drawing from its own
 origin per tick (the rate over the replicas, in float64, cast to float32,
 as the sweep engine lowers it).
 
-The port's own arrival sampling (``draw_table``, ``epoch_stream``) is never
-called: a grid's draws are made here, once, before the window, and handed
-to the port and to the reference alike. Closed-loop workloads and fault
-scenarios are not made here; a mix that names them is refused.
+A mix may name fault scenarios (``null``, the fault-free network, or a
+name of the simulator's scenario library, ``plainscen.NAMES``); a lane
+draws the same way whatever its scenario. The port's own arrival sampling
+(``draw_table``, ``epoch_stream``) is never called: a grid's draws are
+made here, once, before the window, and handed to the port and to the
+reference alike. What the reference does not simulate is refused: a
+workload other than open-loop Poisson, and the flight recorder or the
+health monitor switched on.
 """
 from __future__ import annotations
 
@@ -19,6 +23,8 @@ from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+
+import plainscen
 
 # the workloads this module makes arrivals for: open-loop Poisson at the
 # sweep rate, the same mean at every origin and tick
@@ -82,17 +88,42 @@ def grid_seeds(seed: int, grid: int, count: int) -> Tuple[int, ...]:
     return tuple(int(w) for w in words)
 
 
+# telemetry settings the reference simulates only when off: the flight
+# recorder adds its phase arrays to every row, the monitor its gauges
+TELEMETRY = ("trace_level", "monitor_level")
+
+
+def _refusal(settings: Dict, traffic: Dict) -> Optional[str]:
+    """Why the reference cannot check a mix, or None."""
+    scen = list(traffic.get("scenarios", [None]))
+    unknown = [s for s in scen if s is not None and s not in plainscen.NAMES]
+    if unknown:
+        return (f"scenarios {unknown} are not in the scenario library "
+                f"({', '.join(plainscen.NAMES)})")
+    wls = [w for w in traffic.get("workloads", ["poisson-open"])
+           if w not in OPEN_WORKLOADS]
+    if wls:
+        return (f"workloads {wls}: the reference simulates open-loop "
+                f"arrivals alone ({', '.join(OPEN_WORKLOADS)}), no closed "
+                f"loop and no rate table")
+    on = {k: settings[k] for k in TELEMETRY if settings.get(k, "off") != "off"}
+    if on:
+        return (f"{on}: the reference simulates no flight recorder and no "
+                f"health monitor, so telemetry must be off")
+    return None
+
+
 def make_grid(settings: Dict, traffic: Dict, seed: int, grid: int
               ) -> Grid:
     """Grid ``grid`` of a run seeded ``seed``: the traffic's axes with a
-    fresh seed axis, and every lane's arrivals."""
+    fresh seed axis, and every lane's arrivals. Raises ValueError for a
+    mix the reference cannot check (``_refusal``)."""
+    why = _refusal(settings, traffic)
+    if why is not None:
+        raise ValueError(f"the benchmark cannot check this mix: {why}")
     rates = tuple(float(r) for r in traffic["rates"])
     scen = tuple(traffic.get("scenarios", [None]))
     wls = tuple(traffic.get("workloads", ["poisson-open"]))
-    if any(s is not None for s in scen) or any(
-            w not in OPEN_WORKLOADS for w in wls):
-        raise ValueError(f"inputs are made for the fault-free network and "
-                         f"{OPEN_WORKLOADS} alone, not {scen}, {wls}")
     seeds = grid_seeds(seed, grid, int(traffic["seeds_per_grid"]))
     pts = Grid(rates, seeds, scen, wls, np.empty((0,))).points
     T, n = sim_ticks(settings), int(settings["n_replicas"])

@@ -2,13 +2,19 @@
 
 It simulates Mandator's request dissemination (Algorithm 1) under Sporades
 ordering (Algorithms 2 and 3) or under Multi-Paxos ordering of Mandator's
-vector clocks, tick by tick, on the fault-free WAN of a configuration file
-(every replica up, no link cut, no extra delay, the NIC at its full rate),
-with open-loop arrivals read from the benchmark's own draw table. It is
-written from the protocol rules as the simulator states them (the JAX
-package's ``core/{mandator,sporades,paxos,netsim,channel,workload,
-harness}.py`` were read as the specification and are not imported); it
-shares no code with the port and imports nothing but NumPy.
+vector clocks, tick by tick, on the WAN of a configuration file, with
+open-loop arrivals read from the benchmark's own draw table. Each lane runs
+under its scenario's windowed tables (``plainscen.lower``; the fault-free
+network is one window with every replica up, no link cut or delayed and
+every NIC at its full rate). At every tick a lane reads its window's row:
+a replica that is down takes no requests and forms, votes, proposes and
+times out nothing (what reaches it is still delivered), a cut link drops
+what is sent on it, extra delay adds to the link's before the truncation
+to whole ticks, and a throttled sender's NIC runs at its rate times the
+scale. It is written from the protocol rules as the simulator states them
+(the JAX package's ``core/{mandator,sporades,paxos,netsim,channel,
+workload,harness}.py`` were read as the specification and are not
+imported); it shares no code with the port and imports nothing but NumPy.
 
 The lanes of one call run side by side as the leading axis of every array;
 lanes never mix. Numbers follow the simulator's arithmetic: float32 state,
@@ -76,10 +82,13 @@ class Deployment:
     phase1: np.ndarray          # [n] float32 Paxos phase-1 cost, ticks
 
 
-def deployment(config: Dict, overrides: Optional[Dict] = None
-               ) -> Deployment:
+def deployment(config: Dict, overrides: Optional[Dict] = None,
+               tables: Sequence[Dict] = ()) -> Deployment:
     """The deployment of a configuration file (``rtt_ms``, ``smr``), with
-    a traffic mix's run length over it."""
+    a traffic mix's run length over it. An "auto" delay horizon is sized
+    over ``tables``, the scenario tables of every lane of the grid: their
+    largest extra delay, and the NIC backlog at their smallest NIC
+    scale."""
     s = {**config["smr"], **(overrides or {})}
     n = int(s["n_replicas"])
     tick_ms = float(s["tick_ms"])
@@ -89,13 +98,18 @@ def deployment(config: Dict, overrides: Optional[Dict] = None
     bytes_per_tick = float(s["nic_gbps"]) * 1e9 / 8.0 * tick_ms / 1000.0
     horizon = s["delay_horizon_ticks"]
     if horizon == "auto":
-        # the largest link delay, the NIC backlog of every chain's
-        # outstanding batches at full size, a margin; a power of two
+        # the largest link delay and extra delay, the NIC backlog of every
+        # chain's outstanding batches at full size through the slowest
+        # NIC, a margin; at most the run; a power of two
+        extra = max([0.0] + [float(np.max(t["extra_delay"], initial=0.0))
+                             for t in tables])
+        scale = min([1.0] + [float(np.min(t["nic_scale"], initial=1.0))
+                             for t in tables])
         biggest = max(s["batch_paxos"], s["batch_mandator"],
                       s["batch_sporades"]) * s["request_bytes"] + 100.0
         backlog = (max(1, s["mandator_lanes"]) * n * biggest
-                   / bytes_per_tick)
-        bound = min(float(np.max(one_way) / tick_ms + backlog
+                   / (bytes_per_tick * scale)) if scale > 0.0 else math.inf
+        bound = min(float(np.max(one_way) / tick_ms + extra + backlog
                           + HORIZON_MARGIN), float(ticks + 1))
         horizon = max(64, 1 << max(0, math.ceil(bound) - 1).bit_length(),
                       CANONICAL_HORIZON)
@@ -111,6 +125,36 @@ def deployment(config: Dict, overrides: Optional[Dict] = None
         meta_bytes=int(s["meta_bytes"]),
         timeout_ticks=F32(float(s["view_timeout_ms"]) / tick_ms),
         phase1=np.sort(2 * d64, axis=1)[:, maj - 1].astype(F32))
+
+
+class Network:
+    """Each lane's network: the windowed tables of its scenario, stacked
+    on a leading lane axis (``plainscen.stack``)."""
+
+    def __init__(self, dep: Deployment, tables: Dict):
+        self.dep, self.tab = dep, tables
+        self.lane = np.arange(tables["win_of_tick"].shape[0])
+
+    def at(self, t: int) -> "Links":
+        """Every lane's row of tick t's window."""
+        w = self.tab["win_of_tick"][:, t]
+
+        def row(k):
+            return self.tab[k][self.lane, w]
+        return Links(alive=row("alive"), drop=row("drop"),
+                     delay=self.dep.delays + row("extra_delay"),
+                     rate=self.dep.bytes_per_tick * row("nic_scale"))
+
+
+@dataclass(frozen=True)
+class Links:
+    """One tick's network, per lane: replicas up [B, n], links cut [B,
+    sender, receiver], link delay with the extra delay [B, n, n] float32
+    ticks, NIC egress [B, n] float32 bytes a tick."""
+    alive: np.ndarray
+    drop: np.ndarray
+    delay: np.ndarray
+    rate: np.ndarray
 
 
 # ---------------------------------------------------------------- the coin
@@ -184,10 +228,12 @@ class DelayLine:
         self.pay[s] = NEG
         return flag, pay
 
-    def send(self, t: int, payload, delay, mask) -> None:
-        """payload [B, sender, receiver, w], delay [n, n] or [B, n, n]
-        ticks, mask [B, sender, receiver]: which links send. A send on no
-        link leaves the line as it was."""
+    def send(self, t: int, payload, delay, mask, drop) -> None:
+        """payload [B, sender, receiver, w], delay [B, n, n] ticks, mask
+        [B, sender, receiver]: which links send; drop: which links are
+        cut, where the send is lost. A send on no link leaves the line as
+        it was."""
+        mask = mask & ~drop
         if not mask.any():
             return
         d = np.clip(delay, 1, self.horizon - 1)
@@ -253,13 +299,16 @@ class Mandator:
         self.votes = DelayLine(dep.horizon, lanes, n, 1)
         self.ln, self.rn = np.indices((lanes, n))
 
-    def tick(self, t: int, arrivals) -> None:
+    def tick(self, t: int, arrivals, net: Links) -> None:
         dep, n = self.dep, self.dep.n
         quorum = n - (n - 1) // 2
         tf = F32(t)
+        alive = net.alive
         bfl, bpay = self.batches.pop(t)
         vfl, vpay = self.votes.pop(t)
-        # clients' requests, and the CPU's budget
+        # clients' requests (a replica that is down takes none), and the
+        # CPU's budget
+        arrivals = arrivals * alive
         self.buffer = self.buffer + arrivals
         self.tsum = self.tsum + arrivals * tf
         self.cpu = np.minimum(self.cpu + dep.cpu_per_tick, F32(1e7))
@@ -268,9 +317,9 @@ class Mandator:
         held = np.stack([self.seen, self.lcr], -1).astype(F32)
         got = _received(bfl, bpay, held)
         seen, lcr = got[..., 0].astype(I32), got[..., 1].astype(I32)
-        voted = bfl.transpose(0, 2, 1)                  # [B, voter, owner]
+        voted = bfl.transpose(0, 2, 1) & alive[..., None]  # [B, voter, owner]
         self.votes.send(t, seen.astype(F32)[..., None],
-                        dep.delays.astype(I32), voted)
+                        net.delay.astype(I32), voted, net.drop)
         # votes: a round completes once n - f replicas voted for it
         vote_max = _received(vfl, vpay, self.vote_max.astype(F32)[..., None]
                              )[..., 0].astype(I32)
@@ -281,17 +330,18 @@ class Mandator:
             own = np.where((self.formed >= nxt) & (votes >= quorum), nxt, own)
         lcr[:, np.arange(n), np.arange(n)] = own
         # the next batch
-        can = (self.formed - own) < dep.lanes_per_chain
+        can = alive & ((self.formed - own) < dep.lanes_per_chain)
         formed, count = self._form(t, can, self.formed + 1)
         formed_round = np.where(formed, self.formed + 1, self.formed)
         nbytes = (count * F32(dep.request_bytes) + F32(100.0)) * formed
-        busy, ser = _egress(self.busy, t, nbytes / dep.bytes_per_tick)
+        busy, ser = _egress(self.busy, t, nbytes / net.rate)
         self.busy = np.where(formed, busy, self.busy)
-        delay = (dep.delays + np.where(formed[..., None], ser, F32(0.0))
+        delay = (net.delay + np.where(formed[..., None], ser, F32(0.0))
                  ).astype(I32)
         pay = np.stack([formed_round, own], -1).astype(F32)
         self.batches.send(t, _bcast(pay, n), delay,
-                          np.broadcast_to(formed[..., None], delay.shape))
+                          np.broadcast_to(formed[..., None], delay.shape),
+                          net.drop)
         self.own, self.formed, self.lcr = own, formed_round, lcr
         self.seen, self.vote_max = seen, vote_max
 
@@ -375,14 +425,15 @@ class Sporades:
                       for k, w, _ in messages("sporades", n)}
         self.coins = coin_table(MAX_VIEWS, n)
 
-    def tick(self, t: int, lcr) -> None:
+    def tick(self, t: int, lcr, net: Links) -> None:
         dep, n = self.dep, self.dep.n
         q = n - (n - 1) // 2
         B = lcr.shape[0]
         tf = F32(t)
         rows = np.arange(n)
         every = np.ones((B, n, n), bool)
-        delays = dep.delays.astype(I32)
+        alive = net.alive
+        delays = net.delay.astype(I32)
         to_ticks = dep.timeout_ticks
         lcr_f = lcr.astype(F32)
         msgs = {k: line.pop(t) for k, line in self.lines.items()}
@@ -403,7 +454,8 @@ class Sporades:
         got_prop = afl.any(axis=2)
         pb_key, pc_key = ps[..., 0].astype(I32), ps[..., 1].astype(I32)
         p_vc, p_cvc = ps[..., 2:2 + n], ps[..., 2 + n:]
-        accept = got_prop & ~is_async & (pb_key > _key(v_cur, r_cur))
+        accept = (got_prop & alive & ~is_async
+                  & (pb_key > _key(v_cur, r_cur)))
         cvc = np.where(col(accept), np.maximum(cvc, p_cvc), cvc)
         commit_key = np.where(accept, np.maximum(commit_key, pc_key),
                               commit_key)
@@ -423,7 +475,7 @@ class Sporades:
         voted = vote_st[..., 0].astype(I32)
         kmax = np.max(voted, axis=2)
         match = voted == col(kmax)
-        lead = (~is_async & (match.sum(axis=2) >= q)
+        lead = (alive & ~is_async & (match.sum(axis=2) >= q)
                 & (kmax >= _key(v_cur, r_cur)) & (kmax > self.last_vote_trig)
                 & ((kmax // RS) % n == rows))
         vbh = vote_st[..., 1].astype(I32)
@@ -446,7 +498,8 @@ class Sporades:
         last_vote_trig = np.where(lead, kmax, self.last_vote_trig)
 
         # 3) the view timeout
-        fire = ~is_async & (tf >= deadline) & (self.timeout_sent_v < v_cur)
+        fire = (alive & ~is_async & (tf >= deadline)
+                & (self.timeout_sent_v < v_cur))
         sends.append(("to", np.concatenate(
             [col(v_cur.astype(F32)), col(bh_key.astype(F32)), bh_vc], -1),
             col(fire) & every))
@@ -459,7 +512,8 @@ class Sporades:
         to_v = to_st[..., 0].astype(I32)
         tvmax = np.max(to_v, axis=2)
         tmatch = to_v == col(tvmax)
-        enter = ~is_async & (tmatch.sum(axis=2) >= q) & (tvmax >= v_cur)
+        enter = (alive & ~is_async & (tmatch.sum(axis=2) >= q)
+                 & (tvmax >= v_cur))
         tbh = np.max(np.where(tmatch, to_st[..., 1].astype(I32), -1), axis=2)
         tbh_vc = np.max(np.where(tmatch[..., None], to_st[..., 2:], NEG),
                         axis=2)
@@ -487,7 +541,7 @@ class Sporades:
         pa_h = np.where(pa_vh % 2 == 1, 1, 2)
         pa_v = (pa_vh - pa_h) // 2
         pa_r = pa_k % RS
-        va_vote = (pa_arr & col(is_async) & (pa_v == col(v_cur))
+        va_vote = (pa_arr & col(alive) & col(is_async) & (pa_v == col(v_cur))
                    & (pa_r > col(r_cur)))
         va_fields = np.where(va_vote, pa_k.astype(F32), NEG)
         sends.append(("va", va_fields, col(va_vote.any(axis=2)) & every))
@@ -500,7 +554,7 @@ class Sporades:
         va_own = va_all[:, rows[:, None], rows[None, :], rows[:, None]]
         cnt_h1 = np.sum(va_own == col((v_cur * 2 + 1) * RS + my_r), axis=2)
         cnt_h2 = np.sum(va_own == col((v_cur * 2 + 2) * RS + my_r), axis=2)
-        to_h2 = is_async & (async_phase == 1) & (cnt_h1 >= q)
+        to_h2 = alive & is_async & (async_phase == 1) & (cnt_h1 >= q)
         k_p = np.max(va_all, axis=2)                 # [B, rcv, p]
         cnt_p = np.sum(va_all == k_p[:, :, None, :], axis=2)
         kp_vh = k_p // RS
@@ -510,7 +564,8 @@ class Sporades:
         cand = np.where(adoptable, k_p, -1)
         adopt_key = np.max(cand, axis=2)
         adopt_p = np.argmax(cand, axis=2)
-        adopt = is_async & (async_phase == 1) & ~to_h2 & (adopt_key >= 0)
+        adopt = (alive & is_async & (async_phase == 1) & ~to_h2
+                 & (adopt_key >= 0))
         pa_p_vc = _pick(pa_st[..., 1:], adopt_p)
         adopt_vc = np.where(col(_pick(pa_k, adopt_p) == adopt_key), pa_p_vc,
                             my_avc)
@@ -523,7 +578,7 @@ class Sporades:
         my_r = np.where(go_h2, r2, my_r)
         my_avc = np.where(col(go_h2), avc2, my_avc)
         async_phase = np.where(go_h2, 2, async_phase)
-        to_ac = is_async & (async_phase == 2) & (cnt_h2 >= q)
+        to_ac = alive & is_async & (async_phase == 2) & (cnt_h2 >= q)
         sends.append(("ac", np.concatenate(
             [col(v_cur.astype(F32)), col(my_r.astype(F32)), my_avc], -1),
             col(to_ac) & every))
@@ -539,7 +594,8 @@ class Sporades:
         ac_tick = np.where(newer, tf, self.ac_tick)
         ac_v_seen = np.where(newer, ac_v, self.ac_v_seen)
         acm = ac_v == col(v_cur)
-        exit_ = is_async & (acm.sum(axis=2) >= q) & (self.exited_view < v_cur)
+        exit_ = (alive & is_async & (acm.sum(axis=2) >= q)
+                 & (self.exited_view < v_cur))
         leader = self.coins[np.clip(v_cur, 0, MAX_VIEWS - 1)]
         tick_m = np.where(acm, ac_tick, F32(np.inf))
         thr = np.sort(tick_m, axis=2)[..., q - 1]
@@ -568,7 +624,8 @@ class Sporades:
              bh_vc], -1), col(exit_) & (rows == col(v_cur % n))))
 
         for kind, rows_pay, mask in sends:
-            self.lines[kind].send(t, _bcast(rows_pay, n), delays, mask)
+            self.lines[kind].send(t, _bcast(rows_pay, n), delays, mask,
+                                  net.drop)
         self.v_cur, self.r_cur, self.is_async = v_cur, r_cur, is_async
         self.bh_key, self.bh_vc = bh_key, bh_vc.astype(I32)
         self.commit_key, self.cvc = commit_key, cvc.astype(I32)
@@ -611,16 +668,17 @@ class Paxos:
         self.lines = {k: DelayLine(dep.horizon, lanes, n, w)
                       for k, w, _ in messages("paxos", n)}
 
-    def tick(self, t: int, lcr) -> None:
+    def tick(self, t: int, lcr, net: Links) -> None:
         dep, n = self.dep, self.dep.n
         maj = n // 2 + 1
         tf = F32(t)
         rows = np.arange(n)
-        delays = dep.delays.astype(I32)
+        alive = net.alive
+        delays = net.delay.astype(I32)
         cfl, cpay = self.lines["acc"].pop(t)
         afl, apay = self.lines["ack"].pop(t)
         view = self.view
-        i_lead = (view % n) == rows
+        i_lead = ((view % n) == rows) & alive
         # acks: a majority commits the leader's slot
         acks = _received(afl, apay, self.acks.astype(F32)[..., None]
                          )[..., 0].astype(I32)
@@ -640,7 +698,7 @@ class Paxos:
         slot_vc = np.concatenate([slot[..., None].astype(F32), pay_vc], -1)
         outstanding = outstanding | have
         nbytes = np.where(have, F32(dep.meta_bytes), F32(0.0))
-        busy, ser = _egress(self.busy, t, nbytes / dep.bytes_per_tick)
+        busy, ser = _egress(self.busy, t, nbytes / net.rate)
         self.busy = np.where(have, busy, self.busy)
         delay = (delays.astype(F32) + np.where(have[..., None], ser,
                                                F32(0.0))).astype(I32)
@@ -648,21 +706,23 @@ class Paxos:
                               slot[..., None].astype(F32),
                               np.zeros(view.shape + (1,), F32), pay_vc], -1)
         self.lines["acc"].send(t, _bcast(acc, n), delay,
-                               np.broadcast_to(have[..., None], delay.shape))
+                               np.broadcast_to(have[..., None], delay.shape),
+                               net.drop)
         # followers: a fresh accept sets the view and is acked
         fl = cfl.transpose(0, 2, 1)
         mx = np.max(np.where(fl[..., None], cpay.transpose(0, 2, 1, 3), NEG),
                     axis=2)
         acc_view, acc_slot = mx[..., 0].astype(I32), mx[..., 1].astype(I32)
-        fresh = fl.any(axis=2) & (acc_view >= view)
+        fresh = fl.any(axis=2) & (acc_view >= view) & alive
         view = np.where(fresh, acc_view, view)
         last_heard = np.where(fresh, tf, self.last_heard)
         self.lines["ack"].send(
             t, np.broadcast_to(acc_slot.astype(F32)[:, :, None, None],
                                fl.shape + (1,)),
-            delays, fresh[..., None] & (rows == (view % n)[..., None]))
+            delays, fresh[..., None] & (rows == (view % n)[..., None]),
+            net.drop)
         # the view timeout
-        expired = (tf - last_heard) > dep.timeout_ticks
+        expired = alive & ((tf - last_heard) > dep.timeout_ticks)
         view = np.where(expired, view + 1, view)
         last_heard = np.where(expired, tf, last_heard)
         became = expired & ((view % n) == rows)
@@ -772,10 +832,11 @@ def lane_metrics(dep: Deployment, create_t, arr_mean, count, commit_t
 # ------------------------------------------------------------------- a run
 
 def run(protocol: str, dep: Deployment, arrivals: np.ndarray,
-        precision: str = "float32") -> Dict:
+        tables: Dict, precision: str = "float32") -> Dict:
     """Simulate lanes side by side: ``arrivals`` [B, T, n] requests per
-    origin per tick. Returns the per-tick traces [B, T, ...] and the final
-    Mandator layer."""
+    origin per tick, ``tables`` the lanes' scenario tables, stacked.
+    Returns the per-tick traces [B, T, ...] and the final Mandator
+    layer."""
     if protocol not in LAYERS:
         raise ValueError(f"the reference simulates {sorted(LAYERS)}, "
                          f"not {protocol!r}")
@@ -783,10 +844,12 @@ def run(protocol: str, dep: Deployment, arrivals: np.ndarray,
     m = Mandator(dep, B)
     order = Sporades(dep, B) if protocol == "mandator-sporades" \
         else Paxos(dep, B)
+    net = Network(dep, tables)
     traces: Dict[str, np.ndarray] = {}
     for t in range(T):
-        m.tick(t, arrivals[:, t])
-        order.tick(t, m.lcr)
+        links = net.at(t)
+        m.tick(t, arrivals[:, t], links)
+        order.tick(t, m.lcr, links)
         if precision == "bfloat16":
             _round_state(m)
             _round_state(order)
@@ -798,13 +861,13 @@ def run(protocol: str, dep: Deployment, arrivals: np.ndarray,
 
 
 def lane_rows(protocol: str, dep: Deployment, arrivals: np.ndarray,
-              labels: Sequence[Dict], precision: str = "float32"
-              ) -> List[Dict]:
+              tables: Dict, labels: Sequence[Dict],
+              precision: str = "float32") -> List[Dict]:
     """One row per lane: ``labels[b]`` (protocol, rate, seed, workload)
     with the lane's metrics; under Sporades also the share of replica-ticks
     on the async path, the highest view, and the committed vector clocks
     and commit keys of every tick."""
-    out = run(protocol, dep, arrivals, precision)
+    out = run(protocol, dep, arrivals, tables, precision)
     tr, m = out["trace"], out["mandator"]
     rows = []
     for b, label in enumerate(labels):

@@ -9,6 +9,8 @@ import shutil
 import subprocess
 import sys
 
+import pytest
+
 import pb_registry
 import run
 
@@ -30,7 +32,7 @@ def test_forbidden_compares_whole_names(monkeypatch):
 def test_reference_and_harness_load_no_port_and_no_jax():
     code = ("import sys; sys.path.insert(0, 'perfbench');"
             "import run, pb_check, pb_inputs, pb_trace, pb_roofline;"
-            "import plainsim;"
+            "import plainsim, plainscen;"
             "print(sorted({m.split('.')[0] for m in sys.modules}))")
     out = _python(code, pb_registry.ROOT)
     assert out.returncode == 0, out.stderr
@@ -39,11 +41,13 @@ def test_reference_and_harness_load_no_port_and_no_jax():
                        "torch"}
 
 
-def test_reference_imports_numpy_alone():
-    """The plain reference reads nothing of the port, of JAX or of torch:
-    its module imports only NumPy and the standard library."""
+@pytest.mark.parametrize("module", ["plainsim.py", "plainscen.py"])
+def test_reference_imports_numpy_alone(module):
+    """The plain reference and its scenario tables read nothing of the
+    port, of JAX or of torch: each module imports only NumPy and the
+    standard library."""
     import ast
-    tree = ast.parse((pb_registry.HERE / "plainsim.py").read_text())
+    tree = ast.parse((pb_registry.HERE / module).read_text())
     names = {a.name.split(".")[0] for node in ast.walk(tree)
              if isinstance(node, (ast.Import, ast.ImportFrom))
              for a in node.names}
@@ -51,7 +55,7 @@ def test_reference_imports_numpy_alone():
               if isinstance(node, ast.ImportFrom) and node.module}
     assert names <= {"numpy", "math", "dataclasses", "typing",
                      "__future__", "annotations", "Dict", "List",
-                     "Optional", "Sequence", "dataclass"}, names
+                     "Optional", "Sequence", "Tuple", "dataclass"}, names
 
 
 def test_port_loads_no_jax():
