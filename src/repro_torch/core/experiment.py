@@ -49,11 +49,19 @@ of its one program (the reference pins its program to one lane).
 **Spans.** The engine times itself with ``core/spans.py`` alone: a
 dispatch is a ``sweep.dispatch`` span under a new grid id, its
 ``collect()`` a ``sweep.collect`` span under the same id, each split into
-the spans that module lists (lowering, arrivals, tick 0, capture, load,
-enqueue, finish; wait, readback, rows). On a card an unreduced grid also
-records its boundary events (``spans.GridEvents``): ``collect()`` waits on
-the grid's end event in ``collect.wait`` and adds the device counters;
-``collect.readback`` counts the bytes it copies to the host.
+the spans that module lists (lowering, with the scenarios' own
+``lower.scenarios``, arrivals, tick 0, capture, load, enqueue, finish;
+wait, readback, rows). The lowering counts the window tables' bytes and
+the lanes (``lower.window_bytes``, ``lower.lanes``), a Sporades grid's
+rows its replica-ticks in the asynchronous view and in all
+(``order.async_replica_ticks``, ``order.replica_ticks``). On a card an
+unreduced grid also records its boundary events (``spans.GridEvents``):
+``collect()`` waits on the grid's end event in ``collect.wait`` and adds
+the device counters; ``collect.readback`` counts the bytes it copies to
+the host. It reads the grid back on a side stream that starts at that
+event (``_readback_stream``): the copies wait for this grid alone, not
+for the replays of the grid dispatched after it, so the caller's next
+dispatch is lowered and enqueued while those replays run.
 ``timing_stats`` is the reference's split of the walls, summed from the
 lengths of those two spans.
 
@@ -73,6 +81,7 @@ process-wide accounting stays exact without locks.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import itertools
 from dataclasses import dataclass
@@ -101,6 +110,9 @@ CANONICAL_MIN_WINDOWS = 32
 # replays one block of the reduced path enqueues before the next device's
 # block takes its turn
 REPLAY_CHUNK = 64
+
+# per card index, the side stream that reads collected grids back
+_READBACK: Dict[int, torch.cuda.Stream] = {}
 
 # per protocol, ``timing_stats``' buckets
 _WALLS: Dict[str, Dict[str, float]] = {}
@@ -201,18 +213,19 @@ def _lower(cfg: SMRConfig, spec: SweepSpec, device: torch.device,
     floors the horizon to the canonical program signature (module
     docstring)."""
     pts = list(spec.points())
-    stabs = [sc.lower(cfg, sc.as_scenario(f)) for f in spec.scenarios]
-    n_windows = max(t["alive"].shape[0] for t in stabs)
-    if canonical:
-        n_windows = _canon_pow2(n_windows, CANONICAL_MIN_WINDOWS)
-    # build_env gets the ORIGINAL cfg, so its static-delay validation sees
-    # the user's auto-vs-pinned intent; the lanes share the sweep-wide
-    # resolved horizon
-    envs = [netsim.build_env(cfg, f, n_windows, tab=t, device=device)
-            for f, t in zip(spec.scenarios, stabs)]
-    cfg = netsim.resolve_horizon(cfg, tabs=stabs, canonical=canonical)
+    with spans.span("lower.scenarios"):
+        stabs = [sc.lower(cfg, sc.as_scenario(f)) for f in spec.scenarios]
+        n_windows = max(t["alive"].shape[0] for t in stabs)
+        if canonical:
+            n_windows = _canon_pow2(n_windows, CANONICAL_MIN_WINDOWS)
+        # build_env gets the ORIGINAL cfg, so its static-delay validation
+        # sees the user's auto-vs-pinned intent; the lanes share the
+        # sweep-wide resolved horizon
+        envs = [netsim.build_env(cfg, f, n_windows, tab=t, device=device)
+                for f, t in zip(spec.scenarios, stabs)]
+        cfg = netsim.resolve_horizon(cfg, tabs=stabs, canonical=canonical)
+        env_b = netsim.stack_envs([envs[fi] for _, _, fi, _ in pts])
     mode = wlc.mode_of([wlc.lower(cfg, w) for w in spec.workloads])
-    env_b = netsim.stack_envs([envs[fi] for _, _, fi, _ in pts])
     # lint: allow(dtype-hygiene): per-replica Poisson rate per tick,
     # computed in float64 on the host and cast to float32, so that a
     # batched grid and a single point see identical inputs
@@ -363,6 +376,18 @@ def _interleave(starts, devices) -> List[harness.PointResult]:
     return results
 
 
+def _count_async(frac: np.ndarray, replica_ticks: int) -> None:
+    """Add a Sporades grid's replica-ticks in the asynchronous view and
+    all its replica-ticks to ``order.async_replica_ticks`` and
+    ``order.replica_ticks``. A lane's count is the nearest integer to
+    ``async_frac`` times ``replica_ticks``: ``harness.async_frac`` rounds
+    the count over the size once in float32, an error of under half a
+    count while ``replica_ticks`` is below 2^23."""
+    spans.count("order.async_replica_ticks",
+                sum(round(float(f) * replica_ticks) for f in frac))
+    spans.count("order.replica_ticks", replica_ticks * len(frac))
+
+
 def _rows(protocol: str, pts, wl_names: List[str], out: Dict) -> List[Dict]:
     """One result dict per grid point from the read-back [B, ...] arrays."""
     results: List[Dict] = []
@@ -391,6 +416,19 @@ def _rows(protocol: str, pts, wl_names: List[str], out: Dict) -> List[Dict]:
     return results
 
 
+def _readback_stream(marks):
+    """Where ``collect()`` reads a grid back: on the card (``marks``, the
+    grid's ``spans.GridEvents``), a side stream that waits for the grid's
+    ``end`` event and nothing after it; elsewhere the current stream."""
+    if marks is None:
+        return contextlib.nullcontext()
+    side = _READBACK.get(marks.index)
+    if side is None:
+        side = _READBACK[marks.index] = torch.cuda.Stream(marks.index)
+    side.wait_event(marks.events["end"])
+    return torch.cuda.stream(side)
+
+
 class PendingSweep:
     """A dispatched sweep whose device work may still be running.
     ``collect()`` waits for it, raises as the runs' checks say (before
@@ -400,11 +438,12 @@ class PendingSweep:
     the captured programs they replayed, until then. Analytic protocols
     resolve at dispatch (``results``). ``grid`` is the dispatch's grid id
     (``core/spans.py``), ``marks`` its ``spans.GridEvents`` (None off the
-    card and on the reduced path)."""
+    card and on the reduced path), ``replica_ticks`` a lane's ticks times
+    its replicas."""
 
     def __init__(self, protocol: str, *, results: List[Dict] = None,
                  pts=None, wl_names=None, points=None, n_real=None,
-                 grid=None, marks=None):
+                 grid=None, marks=None, replica_ticks=None):
         self.protocol = protocol
         self._results = results
         self._pts = pts
@@ -412,11 +451,13 @@ class PendingSweep:
         self._points = points     # harness.PointResult, one per block
         self._n_real = n_real     # reduced path: real points before the pad
         self._grid, self._marks = grid, marks
+        self._replica_ticks = replica_ticks
 
     def collect(self) -> List[Dict]:
         if self._results is not None:
             return self._results
-        with spans.span("sweep.collect", grid=self._grid) as sp:
+        with spans.span("sweep.collect", grid=self._grid) as sp, \
+                _readback_stream(self._marks):
             with spans.span("collect.wait"):
                 if self._marks is not None:
                     self._marks.wait()
@@ -435,6 +476,8 @@ class PendingSweep:
             with spans.span("collect.rows"):
                 self._results = _rows(self.protocol, self._pts,
                                       self._wl_names, out)
+                if "async_frac" in out:
+                    _count_async(out["async_frac"], self._replica_ticks)
         _walls(self.protocol)["run_s"] += sp.ns / 1e9
         return self._results
 
@@ -465,6 +508,10 @@ def _dispatch_scan(protocol: str, cfg: SMRConfig, spec: SweepSpec,
             wlt = _lower_workloads(cfg, spec, canonical)
             sig = _signature_of(cfg, mode, env_b, wlt, rate_b,
                                 sampling=draws is None or epochs is not None)
+            # counted together: a grid without them gives no ratio, not 0
+            spans.count("lower.window_bytes",
+                        sum(env_b[k].nbytes for k in netsim.WINDOW_TABLES))
+            spans.count("lower.lanes", len(pts))
         _SIGNATURES.setdefault(protocol, set()).add(sig)
         seed_b = np.asarray(seed_b)
         if reduced:
@@ -499,7 +546,8 @@ def _dispatch_scan(protocol: str, cfg: SMRConfig, spec: SweepSpec,
     walls["horizon"] = int(cfg.delay_horizon_ticks)
     return PendingSweep(protocol, pts=pts, wl_names=wl_names, points=points,
                         n_real=len(pts) if reduced else None, grid=grid,
-                        marks=marks)
+                        marks=marks,
+                        replica_ticks=netsim.sim_ticks(cfg) * cfg.n_replicas)
 
 
 def dispatch_sweep(protocol: str, cfg: SMRConfig, spec: SweepSpec,

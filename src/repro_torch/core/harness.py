@@ -855,7 +855,7 @@ def _results(protocol: str, cfg: SMRConfig, st: Dict, trace: Dict,
     out = _batch_metrics(cfg, wl["batch_create_t"], wl["batch_arr_mean"],
                          wl["batch_count"], commit_t, reduced=reduced)
     if protocol == "mandator-sporades":
-        out["async_frac"] = trace["is_async"].float().flatten(1).mean(dim=1)
+        out["async_frac"] = async_frac(trace["is_async"])
         out["views"] = trace["v_cur"].flatten(1).amax(dim=1)
         if not reduced:
             out["cvc_all"] = trace["cvc_all"]          # [B, ticks, n, n]
@@ -877,6 +877,17 @@ def _results(protocol: str, cfg: SMRConfig, st: Dict, trace: Dict,
             wl["batch_count"], commit_t)
         checks.append((top, _check_weight))
     return PointResult(out, checks)
+
+
+def async_frac(is_async: torch.Tensor) -> torch.Tensor:
+    """[B] share of each lane's replica-ticks in the asynchronous view:
+    the count over the size, rounded once in float32 (2 248 of 10 000 is
+    0.2248). Not ``mean``: on the card it multiplies the sum by
+    float32(1 / size), as the JAX package's ``jnp.mean`` does on XLA:CPU,
+    and reads 0.22479999 there; a division by a host scalar does the same
+    on the card, so the size is a device tensor."""
+    count = is_async.flatten(1).sum(dim=1).float()
+    return count / torch.full_like(count, is_async[0].numel())
 
 
 def run_sim(protocol: str, cfg: SMRConfig, rate_tx_s: float,

@@ -97,6 +97,12 @@ def resolve_horizon(cfg: SMRConfig, scenarios_=(), tabs=None,
     return dataclasses.replace(cfg, delay_horizon_ticks=int(horizon))
 
 
+# build_env's per-window tables, which a scenario sets: what a grid's
+# scenarios put on the device (``lower.window_bytes``, core/spans.py)
+WINDOW_TABLES = ("win_of_tick", "alive_tab", "drop_tab", "delay_tab",
+                 "nic_tab")
+
+
 def build_env(cfg: SMRConfig, scenario=None, n_windows: Optional[int] = None,
               tab=None, device=None) -> Dict[str, torch.Tensor]:
     """One grid point's env as tensors on ``device`` (None = CUDA); the

@@ -23,6 +23,8 @@ The sweep engine's spans (``core/experiment.py``, ``core/harness.py``,
 
     sweep.dispatch      one grid's dispatch_sweep
       sweep.lower       the host's lowering: envs, tables, signature
+        lower.scenarios the scenarios' window tables, the envs on the
+                        device, the horizon, the envs stacked
       sweep.arrivals    the arrival tables and the env on the device
       sweep.tick0       the tick loop's set-up and its eager tick 0
       sweep.capture     a new program's capture (compile_cache.capture)
@@ -42,10 +44,15 @@ every tick of an eager loop, never in a replay: ``tick.mandator``,
 
 **Counters** (``count``, kept in total and per grid):
 ``collect.readback_bytes`` (bytes copied to the host) and
-``collect.lanes`` (lanes collected), ``order.kernel_calls`` and
-``order.chain_calls`` (``sporades.tick`` calls that took the CUDA kernel
-or the op chain; Python calls only, as the tick scopes), and on the card
-the device counters that ``GridEvents`` adds.
+``collect.lanes`` (lanes collected), ``lower.window_bytes`` (bytes of the
+batched env's window tables, ``netsim.WINDOW_TABLES``) and
+``lower.lanes`` (lanes lowered), counted together in ``sweep.lower``;
+``order.async_replica_ticks`` and ``order.replica_ticks`` (a Sporades
+grid's replica-ticks in the asynchronous view, and all of them: the
+counts behind its rows' ``async_frac``, added in ``collect.rows``);
+``order.kernel_calls`` and ``order.chain_calls`` (``sporades.tick`` calls
+that took the CUDA kernel or the op chain; Python calls only, as the tick
+scopes), and on the card the device counters that ``GridEvents`` adds.
 
 **Device events** (``GridEvents``; unreduced grids on a card). A grid
 with replays records CUDA events with timing on its stream:

@@ -3,9 +3,12 @@ run through ``harness._scan_body`` as a graph (tick 0 eager, one tick
 captured, 299 replays) equals the same run's eager loop
 (``harness._eager_on_card``) bit for bit, every carried leaf and every
 trace leaf, on the §5.2 baseline, a closed-loop grid and with telemetry
-full; the rows of ``run_sweep`` too; and the audit's G1-G4 hold on the
-card (one capture, ``n_ticks - 1`` replays, the ring kernel launched by
-its wrapper only for the warm-up tick and the capture). Skips without a
+full; the rows of ``run_sweep`` too; the rows of a grid collected while
+the grid dispatched after it runs (``collect()`` reads it back on a side
+stream and returns before that grid ends) equal each grid's run alone;
+and the audit's G1-G4 hold on the card (one capture, ``n_ticks - 1``
+replays, the ring kernel launched by its wrapper only for the warm-up
+tick and the capture). Skips without a
 CUDA device; run it on the card with
 
     PYTHONPATH=src python -m pytest -q --noconftest <this file>
@@ -126,14 +129,42 @@ def test_rows_graph_equal_eager(protocol):
     graph = run_sweep(protocol, cfg, spec)
     with harness._eager_on_card():
         eager = run_sweep(protocol, cfg, spec)
-    for g, e in zip(graph, eager):
+    assert_rows_equal(graph, eager, protocol)
+
+
+def assert_rows_equal(got, want, what: str) -> None:
+    """Rows of two sweeps equal value for value, floats as their bits."""
+    assert len(got) == len(want), what
+    for g, e in zip(got, want):
         assert g.keys() == e.keys()
         for k in g:
             x, y = np.asarray(g[k]), np.asarray(e[k])
             if x.dtype.kind == "f":
                 x, y = (v.astype(np.float32).view(np.uint32)
                         for v in (x, y))
-            assert np.array_equal(x, y), (protocol, k)
+            assert np.array_equal(x, y), (what, k)
+
+
+def test_a_grid_reads_back_while_the_next_one_runs():
+    _need_card()
+    from repro_torch.configs.smr import SMRConfig
+    from repro_torch.core.experiment import (SweepSpec, dispatch_sweep,
+                                             run_sweep)
+    small = (SMRConfig(sim_seconds=SIM_S), SweepSpec(rates=(100_000,)))
+    # 64 lanes, 4 000 ticks: its replays outlast its host enqueue by far
+    big = (SMRConfig(sim_seconds=4.0),
+           SweepSpec(rates=(50_000, 150_000, 300_000, 450_000),
+                     seeds=tuple(range(16))))
+    # each alone; this also captures both programs
+    alone = [run_sweep("mandator-sporades", *g) for g in (small, big)]
+    pa = dispatch_sweep("mandator-sporades", *small)
+    pb = dispatch_sweep("mandator-sporades", *big)
+    rows_a = pa.collect()
+    assert not pb._marks.events["end"].query(), \
+        "collect() waited for the grid dispatched after its own"
+    rows_b = pb.collect()
+    assert_rows_equal(rows_a, alone[0], "small grid")
+    assert_rows_equal(rows_b, alone[1], "big grid")
 
 
 def test_audit_on_the_card():

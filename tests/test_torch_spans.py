@@ -1,4 +1,5 @@
-"""The port's own clock (``core/spans.py``), on the CPU:
+"""The port's own clock (``core/spans.py``), on the CPU (and, where a
+card is present, ``async_frac`` on it):
 
 - spans nest: each records its parent and its grid (set, or inherited from
   the parent), and its self time is its length less its children's;
@@ -9,6 +10,12 @@
 - one CPU ``dispatch_sweep`` and its ``collect()`` record the sweep
   engine's spans in order, under one grid id, with the bytes read back and
   the lanes collected, and no device counter (the CPU records no events);
+- a grid under fault scenarios lowers them in one ``lower.scenarios``
+  span under ``sweep.lower`` and counts its window tables' bytes and its
+  lanes; a Sporades grid's rows count its replica-ticks in the
+  asynchronous view, the counts behind ``async_frac``, on the plain and
+  the reduced path, and ``async_frac`` is the count over the size rounded
+  once, on the CPU and on the card (a test marked ``cuda``);
 - the device events' replay and boundary counters, with stand-in events:
   a boundary counts only where its earlier grid is in the grid table;
 - ``experiment.timing_stats()`` is summed from the spans' lengths;
@@ -22,20 +29,27 @@ rows are compared bit for bit with the reference's and with each other.
 """
 import time
 
+import numpy as np
 import pytest
 import torch
 from torch.autograd import profiler as autograd_profiler
 from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.configs.smr import SMRConfig
-from repro_torch.core import compile_cache, experiment, spans
+from repro_torch.core import compile_cache, experiment, harness, netsim, spans
 from repro_torch.core.experiment import SweepSpec, dispatch_sweep, run_sweep
+from repro_torch.scenarios import library as scl
 
 CFG = SMRConfig(sim_seconds=0.05)
 SPEC = SweepSpec(rates=(40_000, 120_000), seeds=(0,))
+# a view timeout under the WAN's round trips: lanes go asynchronous in a
+# 200-tick run, the attacked and crashed ones at other shares
+FAULTS_CFG = SMRConfig(sim_seconds=0.2, view_timeout_ms=60.0)
+FAULTS_SPEC = SweepSpec(rates=(100_000,), seeds=(3,), scenarios=(
+    None, scl.get("paper-ddos", 0.2), scl.get("leader-crash-recover", 0.2)))
 
-DISPATCH = ["sweep.lower", "sweep.arrivals", "sweep.tick0", "sweep.enqueue",
-            "sweep.finish", "sweep.dispatch"]
+DISPATCH = ["lower.scenarios", "sweep.lower", "sweep.arrivals",
+            "sweep.tick0", "sweep.enqueue", "sweep.finish", "sweep.dispatch"]
 COLLECT = ["collect.wait", "collect.readback", "collect.rows",
            "sweep.collect"]
 
@@ -134,7 +148,8 @@ def test_one_cpu_dispatch_and_collect(monkeypatch):
     grid = recs[0][2]
     assert grid is not None and all(x[2] == grid for x in recs)
     parents = {x[0]: x[1] for x in recs}
-    assert all(parents[n] == "sweep.dispatch" for n in DISPATCH[:-1])
+    assert parents["lower.scenarios"] == "sweep.lower"
+    assert all(parents[n] == "sweep.dispatch" for n in DISPATCH[1:-1])
     assert all(parents[n] == "sweep.collect" for n in COLLECT[:-1])
     assert parents["sweep.dispatch"] is None \
         and parents["sweep.collect"] is None
@@ -147,7 +162,9 @@ def test_one_cpu_dispatch_and_collect(monkeypatch):
     assert {x[1] for x in tick_recs} == {"sweep.tick0", "sweep.enqueue"}
     assert all(x[2] == grid for x in tick_recs)
     c = st["counters"]
-    assert c["collect.lanes"] == SPEC.size == len(rows)
+    assert c["collect.lanes"] == SPEC.size == len(rows) == c["lower.lanes"]
+    assert c["order.replica_ticks"] == SPEC.size * ticks * CFG.n_replicas
+    assert c["order.async_replica_ticks"] == 0
     # per lane: cvc_all [T, 5, 5] and commit_key [T, 5] int32 at least
     assert c["collect.readback_bytes"] >= SPEC.size * ticks * 30 * 4
     assert not any(k.startswith("device.") for k in c)
@@ -156,6 +173,87 @@ def test_one_cpu_dispatch_and_collect(monkeypatch):
     # a second collect() records nothing more
     pending.collect()
     assert spans.stats()["spans"]["sweep.collect"]["count"] == 1
+
+
+def test_a_faults_grid_lowers_its_scenarios_in_one_span(monkeypatch):
+    seen = _closing_order(monkeypatch)
+    rows = dispatch_sweep("mandator-sporades", FAULTS_CFG, FAULTS_SPEC,
+                          device="cpu").collect()
+    grid = next(x[2] for x in seen if x[0] == "sweep.dispatch")
+    assert [x[1:] for x in seen if x[0] == "lower.scenarios"] \
+        == [("sweep.lower", grid)]
+    env = experiment._lower(FAULTS_CFG, FAULTS_SPEC, torch.device("cpu"),
+                            canonical=True)[3]
+    want = sum(env[k].nbytes for k in netsim.WINDOW_TABLES)
+    # a lane: win_of_tick [T] int32; per window alive [n] and drop [n, n]
+    # bool, delay [n, n] and nic [n] float32
+    n, windows = FAULTS_CFG.n_replicas, env["alive_tab"].shape[1]
+    assert windows == experiment.CANONICAL_MIN_WINDOWS
+    assert want == FAULTS_SPEC.size * (
+        int(FAULTS_CFG.sim_seconds * 1000) * 4 + windows * 5 * (n + n * n))
+    g, = spans.grids()
+    assert g["counters"]["lower.window_bytes"] == want
+    assert g["counters"]["lower.lanes"] == len(rows) == FAULTS_SPEC.size
+    assert g["ns"]["lower.scenarios"] <= g["ns"]["sweep.lower"]
+
+
+@pytest.mark.parametrize("mesh", (None, 2), ids=("plain", "reduced"))
+def test_async_counters_are_the_rows_async_share(mesh):
+    kw = ({"device": "cpu"} if mesh is None
+          else {"mesh": [torch.device("cpu")] * mesh})
+    rows = run_sweep("mandator-sporades", FAULTS_CFG, FAULTS_SPEC, **kw)
+    c = spans.stats()["counters"]
+    size = int(FAULTS_CFG.sim_seconds * 1000) * FAULTS_CFG.n_replicas
+    assert c["order.replica_ticks"] == size * len(rows)
+    fracs = [r["async_frac"] for r in rows]
+    assert len(set(fracs)) == len(fracs) and min(fracs) > 0
+    counts = [round(f * size) for f in fracs]
+    assert fracs == [float(np.float32(k) / np.float32(size))
+                     for k in counts]
+    assert c["order.async_replica_ticks"] == sum(counts)
+    assert c["order.async_replica_ticks"] / c["order.replica_ticks"] \
+        == pytest.approx(np.mean(fracs), rel=1e-6)
+    # no other protocol counts them
+    spans.reset()
+    run_sweep("mandator-paxos", FAULTS_CFG, FAULTS_SPEC, **kw)
+    assert not any(k.startswith("order.") and "replica" in k
+                   for k in spans.stats()["counters"])
+
+
+def test_async_frac_is_the_count_over_the_size_rounded_once():
+    is_async = torch.zeros(3, 2000, 5, dtype=torch.bool)
+    flat = is_async.view(3, -1)
+    gen = torch.Generator().manual_seed(5)
+    for lane, k in enumerate((2248, 1917, 0)):
+        flat[lane, torch.randperm(10_000, generator=gen)[:k]] = True
+    got = harness.async_frac(is_async)
+    assert got.dtype == torch.float32
+    want = np.float32([2248, 1917, 0]) / np.float32(10_000)
+    assert got.numpy().tolist() == want.tolist()
+    # the sum times float32(1 / size), as the card's mean computes it, is
+    # one place lower for 2 248
+    assert np.float32(2248) * np.float32(1 / 10_000) \
+        == np.nextafter(want[0], np.float32(0))
+
+
+@pytest.mark.cuda
+def test_async_frac_on_the_card_is_the_count_over_the_size():
+    """Every count from 0 to 10 000 of a 2 000-tick, five-replica lane, on
+    the card, where ``mean`` reads one place low for many of them (2 248
+    among them). Skips without a CUDA device; run it on the card with
+    ``python -m pytest --noconftest -k on_the_card`` (tests/conftest.py
+    imports the JAX package)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the card's reduction is checked")
+    size = 10_000
+    counts = torch.arange(size + 1, device="cuda")
+    is_async = (torch.arange(size, device="cuda") < counts[:, None]).view(
+        size + 1, 2000, 5)
+    got = harness.async_frac(is_async).cpu().numpy()
+    want = np.arange(size + 1, dtype=np.float32) / np.float32(size)
+    assert got.dtype == np.float32
+    assert np.array_equal(got.view(np.int32), want.view(np.int32))
+    assert got[2248] == np.float32(2248) / np.float32(size)
 
 
 class _Event:
